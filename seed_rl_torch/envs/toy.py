@@ -1,0 +1,127 @@
+"""Toy tensor environments for algorithm sanity tests.
+
+Port of ``seed_rl_tpu/envs/toy.py`` (``BitFlippingEnv`` waits for the SAC
+slice):
+- ``ToyEnv``: observe a random target vector; the reward is the negative
+  squared distance between the action and the *previous* observation's
+  target.
+- ``ToyMemoryEnv``: targets are visible only for the first ``horizon``
+  steps and must be reproduced from memory afterwards.
+
+The dynamics match the JAX package given the same targets; the random
+streams differ (``torch.Generator`` vs ``jax.random``).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
+from seed_rl_torch.envs.spaces import Box
+
+
+def _uniform(shape, generator):
+    """U[-1, 1) draws on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u * 2.0 - 1.0
+
+
+def _with_zero_column(x):
+    return torch.cat([x, torch.zeros_like(x[:, :1])], dim=-1)
+
+
+class _ToyState(NamedTuple):
+    t: torch.Tensor  # i32[B]
+    target: torch.Tensor  # f32[B, n_actions]: what the action should match
+
+
+class ToyEnv(TensorEnv):
+    """Match the observed random vector with your action."""
+
+    def __init__(self, horizon: int = 3, n_actions: int = 3):
+        self.horizon = horizon
+        self.n_actions = n_actions
+        self._action_space = Box(-1.0, 1.0, (n_actions,))
+
+    def observation_spec(self):
+        return TensorSpec((self.n_actions + 1,), torch.float32)
+
+    @property
+    def action_space(self):
+        return self._action_space
+
+    def reset(self, num_envs, generator):
+        target = _uniform((num_envs, self.n_actions), generator)
+        t = torch.zeros(num_envs, dtype=torch.int32, device=target.device)
+        return _ToyState(t=t, target=target), _with_zero_column(target)
+
+    def step(self, state, action, generator):
+        reward = -torch.sum(torch.square(action - state.target), dim=-1)
+        target = _uniform(state.target.shape, generator)
+        t = state.t + 1
+        return StepResult(
+            state=_ToyState(t=t, target=target),
+            observation=_with_zero_column(target),
+            reward=reward,
+            terminated=t >= self.horizon,
+            abandoned=torch.zeros_like(t, dtype=torch.bool),
+        )
+
+
+class _ToyMemoryState(NamedTuple):
+    t: torch.Tensor  # i32[B]
+    memory: torch.Tensor  # f32[B, horizon, n_actions] targets drawn at reset
+
+
+class ToyMemoryEnv(TensorEnv):
+    """Reproduce targets observed ``horizon`` steps ago (recurrence test)."""
+
+    def __init__(self, horizon: int = 3, n_actions: int = 3):
+        self.horizon = horizon
+        self.n_actions = n_actions
+        self._action_space = Box(-1.0, 1.0, (n_actions,))
+
+    def observation_spec(self):
+        return TensorSpec((self.n_actions + 1,), torch.float32)
+
+    @property
+    def action_space(self):
+        return self._action_space
+
+    def _memory_at(self, memory, idx):
+        rows = torch.arange(memory.shape[0], device=memory.device)
+        return memory[rows, idx.long()]
+
+    def _obs(self, state):
+        visible = state.t < self.horizon
+        idx = torch.clamp(state.t, max=self.horizon - 1)
+        mem = self._memory_at(state.memory, idx)
+        mem = torch.where(visible[:, None], mem, torch.zeros_like(mem))
+        return _with_zero_column(mem)
+
+    def reset(self, num_envs, generator):
+        memory = _uniform((num_envs, self.horizon, self.n_actions), generator)
+        t = torch.zeros(num_envs, dtype=torch.int32, device=memory.device)
+        state = _ToyMemoryState(t=t, memory=memory)
+        return state, self._obs(state)
+
+    def step(self, state, action, generator):
+        t = state.t
+        # Recall phase: reward for matching the target seen `horizon` ago.
+        recall_idx = torch.clamp(t - self.horizon, 0, self.horizon - 1)
+        recall_reward = -torch.sum(
+            torch.square(action - self._memory_at(state.memory, recall_idx)),
+            dim=-1,
+        )
+        zero = torch.zeros_like(recall_reward)
+        reward = torch.where(t < self.horizon, zero, recall_reward)
+        terminated = t >= 2 * self.horizon
+        reward = torch.where(terminated, zero, reward)
+        new_state = _ToyMemoryState(t=t + 1, memory=state.memory)
+        return StepResult(
+            state=new_state,
+            observation=self._obs(new_state),
+            reward=reward,
+            terminated=terminated,
+            abandoned=torch.zeros_like(terminated),
+        )

@@ -1,0 +1,107 @@
+"""Carries flax parameters over into the port's modules.
+
+Takes a flax parameter tree of the JAX package's networks, as nested dicts
+of numpy arrays (with or without the top-level ``"params"`` key), and
+returns the ``state_dict`` of the port's counterpart:
+- flax ``Dense`` ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
+  ``bias`` as is;
+- ``nn.OptimizedLSTMCell``'s per-gate ``ii/if/ig/io`` kernels and
+  ``hi/hf/hg/ho`` kernels and biases -> ``LSTMCell.weight_ih``,
+  ``weight_hh`` and ``bias``, gates stacked in the order i, f, g, o.
+
+Any tree of the same structure converts the same way, so a gradient tree
+of the JAX package lands on the port's ``.grad`` layout too.
+"""
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
+
+_GATES = "ifgo"
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def _unwrap(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+def _dense(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    return {
+        prefix + "weight": _tensor(np.asarray(tree["kernel"]).T),
+        prefix + "bias": _tensor(tree["bias"]),
+    }
+
+
+def _lstm_cell(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    def stacked(kind):
+        return np.concatenate(
+            [np.asarray(tree[f"{kind}{g}"]["kernel"]) for g in _GATES], axis=1
+        ).T
+
+    bias = np.concatenate([np.asarray(tree[f"h{g}"]["bias"]) for g in _GATES])
+    return {
+        prefix + "weight_ih": _tensor(stacked("i")),
+        prefix + "weight_hh": _tensor(stacked("h")),
+        prefix + "bias": _tensor(bias),
+    }
+
+
+def _indexed(tree, stem: str):
+    """``Dense_0, Dense_1, ...`` (or ``lstm_0, ...``) in numeric order."""
+    keys = sorted(
+        (k for k in tree if k.startswith(stem)),
+        key=lambda k: int(k[len(stem):]),
+    )
+    return [tree[k] for k in keys]
+
+
+def _mlp_torso(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    for i, layer in enumerate(_indexed(tree, "Dense_")):
+        out.update(_dense(layer, f"{prefix}layers.{i}."))
+    return out
+
+
+def mlp_and_lstm_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    out = _mlp_torso(p["MLPTorso_0"], "torso.")
+    for i, cell in enumerate(_indexed(p["LSTMStack_0"], "lstm_")):
+        out.update(_lstm_cell(cell, f"lstm.cells.{i}."))
+    out.update(_dense(p["policy_logits"], "policy_logits."))
+    out.update(_dense(p["baseline"], "baseline."))
+    return out
+
+
+def mlp_policy_network_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    if "MLPTorso_0" in p:  # shared torso
+        out = _mlp_torso(p["MLPTorso_0"], "torso.")
+    else:
+        out = _mlp_torso(p["policy_torso"], "policy_torso.")
+        out.update(_mlp_torso(p["value_torso"], "value_torso."))
+    out.update(_dense(p["policy_logits"], "policy_logits."))
+    out.update(_dense(p["baseline"], "baseline."))
+    return out
+
+
+def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``net``'s type built from a flax tree."""
+    if isinstance(net, MLPAndLSTM):
+        return mlp_and_lstm_state_dict(params)
+    if isinstance(net, MLPPolicyNetwork):
+        return mlp_policy_network_state_dict(params)
+    raise TypeError(f"no flax converter for {type(net).__name__}")
+
+
+def vtrace_params(
+    net: torch.nn.Module, params
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The JAX V-trace learner's ``{"net": ..., "entropy_cost": ...}`` tree
+    as (net state_dict, entropy-cost scalar)."""
+    return state_dict_for(net, params["net"]), _tensor(params["entropy_cost"])

@@ -1,0 +1,112 @@
+"""Fused V-trace on the card: wrapper of ``csrc/vtrace_kernel.cu``.
+
+Port of the TPU kernel ``seed_rl_tpu/ops/pallas/vtrace_kernel.py`` (the
+Pallas ``_vtrace_kernel`` behind ``from_importance_weights``). The kernel
+is CUDA C++ for sm_90a, built with nvcc at first use and bound through a
+plain C function loaded with ctypes (see ``build.py``).
+
+``from_importance_weights`` has the plain version's signature. For CPU
+tensors it runs the plain version (``seed_rl_torch.ops.vtrace``); for CUDA
+tensors it launches the kernel on the current stream or raises. Both
+outputs are stop-gradient, as on the TPU: the inputs are detached.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from seed_rl_torch.ops import vtrace as vtrace_plain
+from seed_rl_torch.ops.cuda import build
+
+KERNEL_NAME = "vtrace_kernel"
+
+# Kernel launches made by this process (chip_smoke.py reads it to show that
+# the training path went through the kernel).
+launches = 0
+
+_forward = None
+
+
+def _kernel_fn():
+    global _forward
+    if _forward is None:
+        fn = build.load_library(KERNEL_NAME).seed_rl_vtrace_forward
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [ptr] * 8 + [i32, i32, i32, f32, i32, f32, f32, ptr]
+        fn.restype = ctypes.c_int
+        _forward = fn
+    return _forward
+
+
+def from_importance_weights(
+    target_action_log_probs: torch.Tensor,
+    behaviour_action_log_probs: torch.Tensor,
+    discounts: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    clip_rho_threshold: Optional[float] = 1.0,
+    clip_pg_rho_threshold: Optional[float] = 1.0,
+    lambda_: float = 1.0,
+) -> vtrace_plain.VTraceReturns:
+    """V-trace; same contract as ``seed_rl_torch.ops.vtrace``."""
+    global launches
+    inputs = [
+        target_action_log_probs, behaviour_action_log_probs, discounts,
+        rewards, values, bootstrap_value,
+    ]
+    devices = {x.device for x in inputs}
+    if devices == {torch.device("cpu")}:
+        return vtrace_plain.from_importance_weights(
+            *inputs,
+            clip_rho_threshold=clip_rho_threshold,
+            clip_pg_rho_threshold=clip_pg_rho_threshold,
+            lambda_=lambda_,
+        )
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"V-trace inputs must all lie on one CUDA device or all on the "
+            f"CPU, got {sorted(map(str, devices))}"
+        )
+    for x in inputs:
+        if not x.is_floating_point():
+            raise TypeError(f"V-trace inputs must be floating, got {x.dtype}")
+    inputs = [x.detach().to(torch.float32) for x in inputs]
+    (target, behaviour, discounts, rewards, values, bootstrap) = inputs
+    if rewards.dim() != 2:
+        raise ValueError(f"rewards must be [T, B], got {tuple(rewards.shape)}")
+    T, B = rewards.shape
+    if T == 0 or B == 0:
+        raise ValueError(f"V-trace needs T >= 1 and B >= 1, got [{T}, {B}]")
+    for x in (target, behaviour, discounts, values):
+        if x.shape != (T, B):
+            raise ValueError(f"expected [{T}, {B}], got {tuple(x.shape)}")
+    if bootstrap.shape != (B,):
+        raise ValueError(
+            f"bootstrap_value must be [{B}], got {tuple(bootstrap.shape)}"
+        )
+    if not all(x.is_contiguous() for x in inputs):
+        raise ValueError("V-trace kernel inputs must be contiguous")
+
+    vs = torch.empty_like(values)
+    pg_advantages = torch.empty_like(values)
+    device = values.device
+    fn = _kernel_fn()
+    with torch.cuda.device(device):
+        err = fn(
+            target.data_ptr(), behaviour.data_ptr(), discounts.data_ptr(),
+            rewards.data_ptr(), values.data_ptr(), bootstrap.data_ptr(),
+            vs.data_ptr(), pg_advantages.data_ptr(),
+            T, B,
+            int(clip_rho_threshold is not None),
+            float(clip_rho_threshold or 0.0),
+            int(clip_pg_rho_threshold is not None),
+            float(clip_pg_rho_threshold or 0.0),
+            float(lambda_),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"V-trace kernel launch failed: CUDA error {err}")
+    launches += 1
+    return vtrace_plain.VTraceReturns(vs=vs, pg_advantages=pg_advantages)

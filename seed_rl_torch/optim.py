@@ -1,0 +1,78 @@
+"""The optimizer of ``seed_rl_tpu/train.py``: global-norm clip, then Adam.
+
+``ClippedAdam`` is ``optax.chain(optax.clip_by_global_norm(clip_norm),
+optax.adam(schedule, b1=b1, eps=eps))`` over a list of parameters:
+- the clip is written out because optax's has no epsilon, while
+  ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm;
+- ``torch.optim.Adam`` matches ``optax.adam`` (eps outside the square root);
+- the learning rate follows optax's ``linear_schedule`` over optimizer
+  updates when ``end_learning_rate`` is given.
+"""
+
+from typing import Iterable, List, Optional
+
+import torch
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """Scales ``grads`` in place by ``max_norm / norm`` where the global norm
+    reaches ``max_norm`` (optax ``clip_by_global_norm``); returns the norm.
+
+    The choice is made on the device, so the step waits for no host sync.
+    """
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    )
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm
+
+
+class ClippedAdam:
+    """Global-norm clip + Adam with an optional linear learning-rate decay."""
+
+    def __init__(
+        self,
+        params: Iterable[torch.Tensor],
+        learning_rate: float,
+        clip_norm: Optional[float] = None,
+        b1: float = 0.9,
+        eps: float = 1e-8,
+        end_learning_rate: Optional[float] = None,
+        transition_steps: int = 0,
+    ):
+        self.params = list(params)
+        self.clip_norm = clip_norm
+        self.init_learning_rate = learning_rate
+        self.end_learning_rate = end_learning_rate
+        self.transition_steps = transition_steps
+        self.count = 0  # optimizer updates applied, as optax counts them
+        self._adam = torch.optim.Adam(
+            self.params, lr=learning_rate, betas=(b1, 0.999), eps=eps
+        )
+
+    def learning_rate(self) -> float:
+        """optax ``linear_schedule`` at the current update count."""
+        if self.end_learning_rate is None or self.transition_steps <= 0:
+            return self.init_learning_rate
+        done = min(self.count, self.transition_steps) / self.transition_steps
+        return (
+            (self.init_learning_rate - self.end_learning_rate) * (1.0 - done)
+            + self.end_learning_rate
+        )
+
+    def zero_grad(self):
+        self._adam.zero_grad(set_to_none=True)
+
+    def step(self):
+        if self.clip_norm is not None:
+            clip_by_global_norm_(
+                [p.grad for p in self.params if p.grad is not None],
+                self.clip_norm,
+            )
+        for group in self._adam.param_groups:
+            group["lr"] = self.learning_rate()
+        self._adam.step()
+        self.count += 1
