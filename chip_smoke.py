@@ -6,16 +6,31 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build every CUDA kernel of the training path from seed_rl_torch/csrc;
-  3. hold each kernel against its plain PyTorch version on the card;
-  4. time each kernel and its plain version with CUDA events, beside the
+  2. build every CUDA kernel from seed_rl_torch/csrc, one nvcc each, all
+     started together (vtrace_kernel, nstep_kernel);
+  3. hold each kernel against its plain PyTorch version on the card:
+     V-trace at 5 shapes, the n-step targets and priorities at 6 (loss,
+     priorities within rtol = atol = 1e-5, and the gradient of the summed
+     loss in the Q values within rtol 1e-3 / atol 1e-4);
+  4. time each kernel and its plain version with CUDA events at the main
+     path's shapes, its device-only time with torch.profiler, beside the
      least time the card could take for the same work;
   5. train V-trace on the toy env through seed_rl_torch.train.main at the
      default MLPAndLSTM width (num_envs=1024, unroll_length=32), with the
-     kernel launch counts reset just before, and check that every kernel
-     of the path was launched once per train step, that everything lives
-     on the card, and that the metrics are finite;
-  6. print the kernels line (JSON) and the TPU kernels still to port.
+     V-trace launch count reset just before; check one launch per train
+     step, everything on the card, finite metrics; time the step;
+  6. train R2D2 on discrete_match through seed_rl_torch.train.main at the
+     default VectorDuelingDQNNet width with the reference Atari R2D2 knobs
+     (640 envs, 30 of them eval, unroll 80, burn-in 40, batch 64, n 5,
+     gamma 0.997, lr 1e-4, clip 80, a 10k-unroll replay): 2 warmup
+     rollouts, then 4 train steps, with the n-step launch count reset just
+     before; check one launch per insert and per train batch, everything
+     on the card, finite metrics, and the kernel against its plain version
+     on the run's own sampled batch; time the step and its halves;
+  7. print the kernels line (JSON): for each kernel, at its main-path
+     shape, the wrapper's ms per call, the kernel's device-only ms, the
+     plain version's ms and the bound (the n-step kernel: the loss shape,
+     and the insert shape under "insert").
 The last line of standard output is the device JSON:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -31,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -51,6 +67,40 @@ VTRACE_CASES = (
 VTRACE_OPS_PER_ELEMENT = 18
 
 TRAIN_ENVS, TRAIN_UNROLL, TRAIN_STEPS, TIMED_STEPS = 1024, 32, 4, 10
+
+NSTEP_TOL = 1e-5
+NSTEP_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+# (T, B, A, n_steps, gamma, eta): the R2D2 loss shape (unroll 80 + 1 after
+# the burn-in, batch 64), the insert shape (610 training envs), the
+# tests/test_pallas_nstep.py cases, n >= T with an odd B, and T = 2.
+NSTEP_LOSS_SHAPE, NSTEP_INSERT_SHAPE = (81, 64), (81, 610)
+NSTEP_CASES = (
+    (81, 64, 4, 5, 0.997, 0.9),
+    (81, 610, 4, 5, 0.997, 0.9),
+    (11, 256, 6, 5, 0.997, 0.9),
+    (7, 64, 4, 3, 0.99, 0.7),
+    (3, 37, 4, 5, 0.997, 0.9),
+    (2, 1, 4, 1, 0.997, 0.9),
+)
+# Arithmetic of one [t, b] element in csrc/nstep_kernel.cu (sqrt and
+# division counted as one): h^-1 11, the n-step nesting 3 per step (n = 5),
+# h 7, |TD|, max and sum 4.
+NSTEP_OPS_PER_ELEMENT = 11 + 3 * 5 + 7 + 4
+
+R2D2_ENVS, R2D2_EVAL_ENVS, R2D2_UNROLL, R2D2_BURN_IN = 640, 30, 80, 40
+R2D2_WARMUPS, R2D2_STEPS, R2D2_BATCHES_PER_STEP = 2, 4, 1
+R2D2_ARGV = [
+    "--agent=r2d2", "--env=discrete_match",
+    f"--num_envs={R2D2_ENVS}", f"--num_eval_envs={R2D2_EVAL_ENVS}",
+    f"--unroll_length={R2D2_UNROLL}", f"--burn_in={R2D2_BURN_IN}",
+    "--batch_size=64", "--n_steps=5", "--discounting=0.997",
+    "--learning_rate=1e-4", "--clip_norm=80",
+    "--replay_buffer_size=10000", "--replay_buffer_min_size=1220",
+    f"--total_environment_frames={R2D2_STEPS * R2D2_ENVS * R2D2_UNROLL}",
+    f"--train_batches_per_step={R2D2_BATCHES_PER_STEP}",
+    "--steps_per_call=1", "--log_every_steps=1",
+]
+R2D2_TIMED_STEPS = 5
 
 
 def _vtrace_inputs(T, B, seed, device):
@@ -87,6 +137,135 @@ def _cuda_ms(fn, iters, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _nstep_inputs(T, B, A, seed, device):
+    rng = np.random.RandomState(seed)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    return dict(
+        q_values=f32(rng.normal(size=(T, B, A))),
+        target_q_values=f32(rng.normal(size=(T, B, A))),
+        online_argmax_action=i32(rng.randint(0, A, (T, B))),
+        replay_action=i32(rng.randint(0, A, (T, B))),
+        rewards=f32(rng.normal(size=(T, B))),
+        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=torch.bool,
+                          device=device),
+    )
+
+
+def _nstep_bound_ms(T, B):
+    # Four [T, B] f32 inputs read, [T-1, B] targets and [B] priorities
+    # written.
+    bytes_moved = (4 * T * B + (T - 1) * B + B) * 4
+    ops = NSTEP_OPS_PER_ELEMENT * T * B
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else
+                                   "operations")
+
+
+def _nstep_compare(kernel_args, plain_args, kw, what):
+    """Kernel vs plain on one input set: returns (max |err| of loss and
+    priorities, kernel outputs, plain outputs); raises beyond the
+    tolerance."""
+    from seed_rl_torch.ops import value_ops
+    from seed_rl_torch.ops.cuda import nstep_kernel
+
+    got = nstep_kernel.td_loss_and_priorities(*kernel_args, **kw)
+    want = value_ops.td_loss_and_priorities(*plain_args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("loss", "priorities"), got, want):
+        torch.testing.assert_close(g, w, rtol=NSTEP_TOL, atol=NSTEP_TOL)
+        e = float((g - w).detach().abs().max())
+        err = max(err, e)
+        print(f"nstep {what}: {name} max|err|={e:.3e} (tol {NSTEP_TOL})")
+    return err, got, want
+
+
+def check_nstep_kernel(device):
+    """Phase 3: the n-step kernel vs its plain version, with the gradient
+    of the summed loss in the Q values; returns max |err|."""
+    max_err = 0.0
+    for seed, (T, B, A, n, gamma, eta) in enumerate(NSTEP_CASES):
+        inputs = _nstep_inputs(T, B, A, seed, device)
+        q = inputs.pop("q_values")
+        q_kernel = q.clone().requires_grad_(True)
+        q_plain = q.clone().requires_grad_(True)
+        what = f"T={T} B={B} A={A} n={n} gamma={gamma} eta={eta}"
+        kw = dict(gamma=gamma, n_steps=n, eta=eta)
+        err, (loss, _), (want_loss, _) = _nstep_compare(
+            [q_kernel, *inputs.values()], [q_plain, *inputs.values()], kw,
+            what)
+        max_err = max(max_err, err)
+        (g_kernel,) = torch.autograd.grad(loss.sum(), q_kernel)
+        (g_plain,) = torch.autograd.grad(want_loss.sum(), q_plain)
+        torch.testing.assert_close(g_kernel, g_plain, **NSTEP_GRAD_TOL)
+        print(f"nstep {what}: dloss/dq max|err|="
+              f"{float((g_kernel - g_plain).abs().max()):.3e} "
+              f"(tol {NSTEP_GRAD_TOL})")
+    return max_err
+
+
+def _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by):
+    """One shape's phase-4 numbers, under the kernels line's keys: ``ms``
+    is the wrapper's call (CUDA events), ``device_ms`` the kernel alone
+    (torch.profiler; None where it shows no device rows)."""
+    return {"shape": [T, B], "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _profiled_device_ms(fn, key, iters=20):
+    """Device-only time per launch of the kernels whose name holds ``key``
+    (torch.profiler), or None where the profiler shows no device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in _device_kernels(p) if key in e.key]
+    if not rows:
+        return None
+    return rows[0].self_device_time_total / rows[0].count / 1e3
+
+
+def time_nstep_kernel(device):
+    """Phase 4: the n-step kernel and its plain version at both shapes of
+    the R2D2 path; returns each shape's numbers by name."""
+    from seed_rl_torch.ops import value_ops
+    from seed_rl_torch.ops.cuda import nstep_kernel
+
+    results = {}
+    for name, (T, B) in (("loss", NSTEP_LOSS_SHAPE),
+                         ("insert", NSTEP_INSERT_SHAPE)):
+        inputs = _nstep_inputs(T, B, 4, 0, device)
+        kw = dict(gamma=0.997, n_steps=5)
+        kernel_ms = _cuda_ms(
+            lambda: nstep_kernel.td_loss_and_priorities(**inputs, **kw),
+            iters=200)
+        plain_ms = _cuda_ms(
+            lambda: value_ops.td_loss_and_priorities(**inputs, **kw),
+            iters=20)
+        device_ms = _profiled_device_ms(
+            lambda: nstep_kernel.td_loss_and_priorities(**inputs, **kw),
+            "nstep")
+        bound_ms, bound_by = _nstep_bound_ms(T, B)
+        shown = ("not measured (no profiler rows)" if device_ms is None
+                 else f"{device_ms:.6f} ms")
+        print(f"nstep {name} T={T} B={B}: wrapper+kernel {kernel_ms:.6f} ms "
+              f"per call (CUDA events over back-to-back calls), kernel alone "
+              f"on the device {shown} (torch.profiler), plain "
+              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        results[name] = _timing(T, B, kernel_ms, device_ms, plain_ms,
+                                bound_ms, bound_by)
+    return results
 
 
 def check_vtrace_kernel(device):
@@ -127,23 +306,17 @@ def time_vtrace_kernel(device):
           f"(CUDA events over back-to-back calls), plain {plain_ms:.6f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by})")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(20):
-            vtrace_kernel.from_importance_weights(*args)
-        torch.cuda.synchronize()
-    rows = [e for e in _device_kernels(p) if "vtrace" in e.key]
-    if rows:
-        device_ms = rows[0].self_device_time_total / rows[0].count / 1e3
-        print(f"vtrace T={T} B={B}: kernel alone on the device "
-              f"{device_ms:.6f} ms (torch.profiler, {rows[0].count} launches)")
-    else:
+    device_ms = _profiled_device_ms(
+        lambda: vtrace_kernel.from_importance_weights(*args), "vtrace")
+    if device_ms is None:
         print("vtrace kernel device time: not measured (no profiler rows)")
-    return kernel_ms, plain_ms, bound_ms, bound_by
+    else:
+        print(f"vtrace T={T} B={B}: kernel alone on the device "
+              f"{device_ms:.6f} ms (torch.profiler, 20 launches)")
+    return _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by)
 
 
-def run_training(device_name):
+def run_training(card):
     """Phase 5: the port's main path through its CLI entry point."""
     from seed_rl_torch import train
     from seed_rl_torch.agents import vtrace as vtrace_agent
@@ -156,7 +329,7 @@ def run_training(device_name):
         f"--total_environment_frames={TRAIN_STEPS * TRAIN_ENVS * TRAIN_UNROLL}",
         "--steps_per_call=1", "--log_every_steps=1",
     ]
-    vtrace_kernel.launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     learner, state, metrics = train.main(argv)
     torch.cuda.synchronize()
@@ -204,7 +377,7 @@ def run_training(device_name):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     frames_per_s = learner.frames_per_step / step_s
-    print(f"train step on {device_name}: {step_s * 1e3:.3f} ms, "
+    print(f"train step on {card}: {step_s * 1e3:.3f} ms, "
           f"{frames_per_s:.1f} env frames/s "
           f"(num_envs={TRAIN_ENVS}, unroll_length={TRAIN_UNROLL}, "
           f"MLPAndLSTM (64,64)+(64,))")
@@ -223,8 +396,103 @@ def run_training(device_name):
     print(f"per step: rollout {rollout_s / TIMED_STEPS * 1e3:.3f} ms, "
           f"update (loss, backward, clip, Adam, stats) "
           f"{update_s / TIMED_STEPS * 1e3:.3f} ms")
-    profile_device_time(learner, state, step_s)
+    profile_device_time(learner, state, step_s, "vtrace")
     return launches
+
+
+def _reset_launch_counts():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+    vtrace_kernel.launches = nstep_kernel.launches = 0
+
+
+def run_r2d2(card):
+    """Phase 6: R2D2 through the CLI entry point, at the reference knobs."""
+    from seed_rl_torch import train
+    from seed_rl_torch.agents import r2d2
+    from seed_rl_torch.ops.cuda import nstep_kernel
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    learner, state, metrics = train.main(R2D2_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = nstep_kernel.launches
+    want = R2D2_WARMUPS + state.step * (1 + R2D2_BATCHES_PER_STEP)
+    if state.step != R2D2_STEPS:
+        raise RuntimeError(f"trained {state.step} steps, want {R2D2_STEPS}")
+    if launches != want:
+        raise RuntimeError(
+            f"nstep kernel launched {launches} times, want {want} "
+            f"({R2D2_WARMUPS} warmup inserts + {state.step} x (1 insert + "
+            f"{R2D2_BATCHES_PER_STEP} batches))")
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"non-finite metrics: {bad}")
+    tensors = (learner.parameters() + list(learner.target_net.parameters())
+               + learner.state_tensors(state))
+    off_card = [t.device for t in tensors if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{len(off_card)} tensors off the card")
+    replay_mb = sum(t.numel() * t.element_size() for t in
+                    pytree.tree_leaves(state.replay.buffer)) / 1e6
+    print(f"r2d2 train: {R2D2_WARMUPS} warmup rollouts + {state.step} steps "
+          f"in {wall_s:.3f} s including setup; nstep launches {launches}; "
+          f"losses/td={float(metrics['losses/td']):.6f}; {len(tensors)} "
+          f"tensors on cuda; replay {state.replay.num_inserted} unrolls, "
+          f"{replay_mb:.1f} MB")
+
+    # The kernel on a batch sampled from this run's replay, against the
+    # plain version; loss and priorities must be finite.
+    config = learner.config
+    _, _, items = learner.replay.sample(
+        state.replay, learner.generator, config.batch_size,
+        config.priority_exponent)
+    with torch.no_grad():
+        args = r2d2.loss_inputs(
+            learner.net, learner.target_net, items.agent_state,
+            *r2d2._time_major((items.prev_actions, items.env_outputs,
+                               items.agent_outputs)),
+            burn_in=config.burn_in)
+    kw = dict(gamma=config.discounting, n_steps=config.n_steps,
+              rescaling_eps=config.value_function_rescaling_epsilon)
+    err, (loss, pri), _ = _nstep_compare(args, args, kw,
+                                         "on the run's own sampled batch")
+    if not (torch.isfinite(loss).all() and torch.isfinite(pri).all()):
+        raise RuntimeError("non-finite loss or priorities")
+
+    for _ in range(2):  # warm
+        state, _ = learner.train_step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(R2D2_TIMED_STEPS):
+        state, metrics = learner.train_step(state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / R2D2_TIMED_STEPS
+    print(f"r2d2 train step on {card}: {step_s * 1e3:.3f} ms, "
+          f"{learner.frames_per_step / step_s:.1f} env frames/s "
+          f"(num_envs={R2D2_ENVS}, unroll_length={R2D2_UNROLL}, burn_in="
+          f"{R2D2_BURN_IN}, batch 64, VectorDuelingDQNNet (64,)+64+64)")
+
+    # Where the step's time goes: rollout + insert, and one train batch.
+    insert_s = batch_s = 0.0
+    for _ in range(R2D2_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state = learner.warmup_step(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = learner.train_on_batch(state)
+        torch.cuda.synchronize()
+        insert_s += t1 - t0
+        batch_s += time.perf_counter() - t1
+    print(f"r2d2 per step on {card}: rollout + insert "
+          f"{insert_s / R2D2_TIMED_STEPS * 1e3:.3f} ms, train batch (sample, "
+          f"burn-in + unrolls, loss, backward, clip, Adam, priorities) "
+          f"{batch_s / R2D2_TIMED_STEPS * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, "r2d2")
+    return launches, err
 
 
 def _device_kernels(prof):
@@ -238,7 +506,7 @@ def _device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
-def profile_device_time(learner, state, step_s, steps=3):
+def profile_device_time(learner, state, step_s, what, steps=3):
     """Device busy time per step from torch.profiler, and the idle share
     against the unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
@@ -251,10 +519,10 @@ def profile_device_time(learner, state, step_s, steps=3):
     busy_us = sum(e.self_device_time_total for e in kernels) / steps
     launches = sum(e.count for e in kernels) / steps
     if busy_us == 0:
-        print("profiler: no device time recorded; device busy share not "
-              "measured")
+        print(f"{what} profiler: no device time recorded; device busy share "
+              "not measured")
         return
-    print(f"profiler: device busy {busy_us / 1e3:.3f} ms per step over "
+    print(f"{what} profiler: device busy {busy_us / 1e3:.3f} ms per step over "
           f"{launches:.0f} kernel launches; idle share "
           f"{1 - busy_us / 1e6 / step_s:.3f} of the {step_s * 1e3:.3f} ms step")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -281,30 +549,40 @@ def main():
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build.build(["vtrace_kernel"])
+    build.build(["vtrace_kernel", "nstep_kernel"])
     print(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs.items():
         print(f"--- nvcc {name}\n{log.strip()}")
 
-    max_err = check_vtrace_kernel(device)
-    kernel_ms, plain_ms, bound_ms, bound_by = time_vtrace_kernel(device)
-    launches = run_training(device_name)
+    vtrace_err = check_vtrace_kernel(device)
+    nstep_err = check_nstep_kernel(device)
+    vtrace_times = time_vtrace_kernel(device)
+    nstep_times = time_nstep_kernel(device)
+    vtrace_launches = run_training(smi)["vtrace"]
+    nstep_launches, own_batch_err = run_r2d2(smi)
 
-    kernels = [{
-        "name": "vtrace",
-        "route": "cuda",
-        "source": "seed_rl_torch/csrc/vtrace_kernel.cu",
-        "replaces": "seed_rl_tpu/ops/pallas/vtrace_kernel.py:29",
-        "launches": launches["vtrace"],
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes V-trace
-    }]
-    print("not ported yet: nstep seed_rl_tpu/ops/pallas/nstep_kernel.py:36 "
-          "(R2D2 n-step targets and priorities; not on this path)")
+    kernels = []
+    for name, replaces, launches, err, times, extra in (
+        ("vtrace", "seed_rl_tpu/ops/pallas/vtrace_kernel.py:29",
+         vtrace_launches, vtrace_err, vtrace_times, {}),
+        # The loss shape's numbers at the top level, the insert shape's
+        # under "insert".
+        ("nstep", "seed_rl_tpu/ops/pallas/nstep_kernel.py:36",
+         nstep_launches, max(nstep_err, own_batch_err), nstep_times["loss"],
+         {"insert": nstep_times["insert"]}),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"seed_rl_torch/csrc/{name}_kernel.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            **times,
+            # No single PyTorch call computes V-trace or the n-step targets.
+            "library_ms": None,
+            **extra,
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,499 @@
+"""R2D2: recurrent replay distributed DQN, on the device.
+
+Port of ``seed_rl_tpu/agents/r2d2.py`` (the fused on-device learner):
+- per-env epsilon ladder ``0.4^linspace(1, 8, num_training_envs)`` for
+  training envs and a fixed eval epsilon for dedicated eval envs (ids >=
+  ``num_training_envs``), whose experience is never stored;
+- burn-in: the stored unroll carries ``burn_in`` overlap steps; the loss
+  re-runs that prefix through both networks to warm their recurrent state,
+  without gradients;
+- sequence double-DQN loss on h-rescaled values with n-step Bellman (or
+  Retrace) targets, priorities eta*max|TD| + (1-eta)*mean|TD|; the n-step
+  targets come from the hand-written CUDA kernel on the card
+  (``ops/cuda/nstep_kernel.py``) and from its plain version on the CPU;
+- initial priorities from the behaviour network's own Q values at insert;
+- prioritized replay with importance-sampling weights, priorities written
+  back after every optimization batch;
+- a hard target-network copy every ``update_target_every_n_step`` steps.
+
+One train step: rollout, epsilon-greedy, insert, then
+``train_batches_per_step`` x (sample, burn-in loss, clip + Adam, priority
+write-back). A warmup phase fills the buffer to ``replay_buffer_min_size``
+first.
+
+Where the JAX package keeps parameters, target parameters and optimizer
+state in a functional train state, here the online network is the agent's
+module, the target network a second module of the same type, and the
+optimizer holds its state; the train state carries the replay, the
+rollout, both episode-stat windows and the step count (a host int, so the
+target sync needs no device sync). ``R2D2HostLearner`` (host envs and
+host-RAM replay) waits for the host-env slice.
+"""
+
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from seed_rl_torch.ops import value_ops
+from seed_rl_torch.ops.cuda import nstep_kernel
+from seed_rl_torch.replay import PrioritizedReplay, ReplayState
+from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
+from seed_rl_torch.types import QAgentOutput
+from seed_rl_torch.utils import episode_stats
+
+
+def training_env_epsilons(num_training_envs: int, device=None) -> torch.Tensor:
+    """eps_i = 0.4 ** linspace(1, 8, n)."""
+    return 0.4 ** torch.linspace(1.0, 8.0, num_training_envs, device=device)
+
+
+class R2D2Agent:
+    """Epsilon-greedy wrapper around a Q-network (``VectorDuelingDQNNet``)."""
+
+    def __init__(self, net: torch.nn.Module, epsilons: torch.Tensor):
+        """``epsilons``: f32[num_envs] per-env exploration rates."""
+        self.net = net
+        self.epsilons = epsilons
+        self.num_actions = net.num_actions
+
+    def initial_state(self, batch_size: int):
+        return self.net.initial_state(batch_size)
+
+    def policy_step(
+        self,
+        prev_action,
+        env_output,
+        core_state,
+        generator: Optional[torch.Generator] = None,
+        random_actions: Optional[torch.Tensor] = None,
+        uniform: Optional[torch.Tensor] = None,
+    ) -> Tuple[QAgentOutput, Any]:
+        """One epsilon-greedy step on [B] inputs (batch position = env id).
+
+        ``random_actions`` (int[B]) and ``uniform`` (f32[B] in [0, 1))
+        replace the generator's draws.
+        """
+        output, new_state = self.net(prev_action, env_output, core_state)
+        batch = output.action.shape[0]
+        device = output.action.device
+        if random_actions is None:
+            random_actions = torch.randint(
+                0, self.num_actions, (batch,), generator=generator,
+                device=device, dtype=torch.int32,
+            )
+        if uniform is None:
+            uniform = torch.rand((batch,), generator=generator, device=device)
+        take_random = uniform < self.epsilons
+        action = torch.where(
+            take_random, random_actions.to(torch.int32), output.action
+        )
+        return QAgentOutput(action, output.q_values), new_state
+
+    def unroll(self, prev_actions, env_outputs, core_state):
+        return self.net.unroll(prev_actions, env_outputs, core_state)
+
+
+@dataclasses.dataclass(frozen=True)
+class R2D2Config:
+    """Defaults = the JAX package's (reference R2D2 learner flags)."""
+
+    discounting: float = 0.997
+    n_steps: int = 5
+    burn_in: int = 40
+    importance_sampling_exponent: float = 0.6
+    priority_exponent: float = 0.9
+    replay_buffer_size: int = 10_000  # unrolls
+    replay_buffer_min_size: int = 500  # unrolls before training starts
+    batch_size: int = 64
+    train_batches_per_step: int = 1
+    update_target_every_n_step: int = 2500
+    eval_epsilon: float = 1e-3
+    num_eval_envs: int = 0
+    value_function_rescaling_epsilon: float = 1e-3
+    num_action_repeats: int = 1
+    # "nstep" or "retrace" (Retrace(lambda) clipped-trace targets).
+    target: str = "nstep"
+    retrace_lambda: float = 0.95
+
+
+class StoredUnroll(NamedTuple):
+    """One replay item, item-major (leaves [T_total, ...] per slot)."""
+
+    agent_state: Any  # core state at the unroll's first timestep
+    prev_actions: Any
+    env_outputs: Any
+    agent_outputs: Any
+
+
+class R2D2TrainState(NamedTuple):
+    replay: ReplayState
+    rollout: RolloutState
+    stats: episode_stats.EpisodeStatsState
+    eval_stats: episode_stats.EpisodeStatsState
+    step: int  # train steps (rollout cycles)
+
+
+def unroll_to_items(unroll: Unroll, num_training_envs: int) -> StoredUnroll:
+    """Time-major [T, B] unroll -> item-major [num_training_envs, T] views.
+
+    Eval envs (ids >= num_training_envs) are left out: their experience is
+    never stored.
+    """
+    n = num_training_envs
+    ts = unroll.timesteps
+
+    def to_items(t):
+        return t[:, :n].transpose(0, 1)
+
+    return StoredUnroll(
+        agent_state=pytree.tree_map(lambda t: t[:n], unroll.agent_state),
+        prev_actions=pytree.tree_map(to_items, ts.prev_action),
+        env_outputs=pytree.tree_map(to_items, ts.env_output),
+        agent_outputs=pytree.tree_map(to_items, ts.agent_output),
+    )
+
+
+def _time_major(tree):
+    """Item-major [B, T, ...] leaves -> contiguous time-major [T, B, ...]."""
+    return pytree.tree_map(lambda t: t.transpose(0, 1).contiguous(), tree)
+
+
+def initial_priorities(config: R2D2Config, items: StoredUnroll):
+    """Behaviour-network-only priorities of freshly inserted items: the
+    online and target Q are both the stored behaviour Q, and the argmax and
+    replayed action both the played action."""
+    env_outputs, agent_outputs = pytree.tree_map(
+        lambda t: t[config.burn_in:],
+        _time_major((
+            (items.env_outputs.reward, items.env_outputs.done),
+            (items.agent_outputs.action, items.agent_outputs.q_values),
+        )),
+    )
+    rewards, done = env_outputs
+    action, q_values = agent_outputs
+    if config.target == "retrace":
+        # Insertion priorities use the error metric the training loss
+        # updates them with.
+        _, priorities = value_ops.retrace_loss_and_priorities(
+            q_values, q_values, action, action, rewards, done,
+            gamma=config.discounting,
+            lambda_=config.retrace_lambda,
+            rescaling_eps=config.value_function_rescaling_epsilon,
+        )
+        return priorities
+    _, priorities = nstep_kernel.td_loss_and_priorities_dispatch(
+        q_values, q_values, action, action, rewards, done,
+        gamma=config.discounting,
+        n_steps=config.n_steps,
+        rescaling_eps=config.value_function_rescaling_epsilon,
+    )
+    return priorities
+
+
+def loss_inputs(
+    net: torch.nn.Module,
+    target_net: torch.nn.Module,
+    agent_state,
+    prev_actions,
+    env_outputs,
+    agent_outputs,
+    burn_in: int,
+):
+    """The arguments of the TD loss on time-major [T_total, B] inputs:
+    (online Q, target Q, online argmax, replayed action, rewards, done),
+    each over the T_total - burn_in steps after the burn-in.
+
+    The burn-in prefix warms both networks' recurrent state without
+    gradients; gradients flow into ``net`` through the suffix unroll only.
+    """
+    if burn_in:
+        prefix = pytree.tree_map(
+            lambda t: t[:burn_in], (prev_actions, env_outputs))
+        suffix = pytree.tree_map(
+            lambda t: t[burn_in:], (prev_actions, env_outputs))
+        agent_outputs = pytree.tree_map(lambda t: t[burn_in:], agent_outputs)
+        with torch.no_grad():  # stop-gradient on the warmed-up states
+            _, training_state = net.unroll(*prefix, agent_state)
+            _, target_state = target_net.unroll(*prefix, agent_state)
+    else:
+        suffix = (prev_actions, env_outputs)
+        training_state = target_state = agent_state
+
+    training_output, _ = net.unroll(*suffix, training_state)
+    with torch.no_grad():
+        target_output, _ = target_net.unroll(*suffix, target_state)
+    env_outputs_suffix = suffix[1]
+    return (
+        training_output.q_values,
+        target_output.q_values,
+        training_output.action,
+        agent_outputs.action,
+        env_outputs_suffix.reward,
+        env_outputs_suffix.done,
+    )
+
+
+def compute_loss_and_priorities(
+    net: torch.nn.Module,
+    target_net: torch.nn.Module,
+    agent_state,
+    prev_actions,
+    env_outputs,
+    agent_outputs,
+    gamma: float,
+    burn_in: int,
+    n_steps: int,
+    eta: float = 0.9,
+    rescaling_eps: float = 1e-3,
+    target: str = "nstep",
+    retrace_lambda: float = 0.95,
+):
+    """Burn-in + double-DQN sequence loss on time-major [T_total, B] inputs.
+
+    Returns (loss f32[B], priorities f32[B]). ``target="retrace"`` swaps the
+    n-step Bellman targets for Retrace(lambda) targets.
+    """
+    if target not in ("nstep", "retrace"):
+        raise ValueError(f"unknown R2D2 target {target!r}")
+    args = loss_inputs(net, target_net, agent_state, prev_actions,
+                       env_outputs, agent_outputs, burn_in)
+    if target == "retrace":
+        return value_ops.retrace_loss_and_priorities(
+            *args, gamma=gamma, lambda_=retrace_lambda, eta=eta,
+            rescaling_eps=rescaling_eps,
+        )
+    return nstep_kernel.td_loss_and_priorities_dispatch(
+        *args, gamma=gamma, n_steps=n_steps, eta=eta,
+        rescaling_eps=rescaling_eps,
+    )
+
+
+def _mean_metrics(history: List[Dict[str, torch.Tensor]]):
+    return {
+        k: torch.mean(torch.stack([m[k] for m in history]))
+        for k in history[0]
+    }
+
+
+class R2D2Learner:
+    """Fused on-device R2D2: rollout, insert, sample, loss, update.
+
+    Args:
+      engine: the rollout engine, with ``num_overlapping_steps = burn_in``
+        (its env's device is the learner's).
+      agent: an ``R2D2Agent`` whose network holds the online parameters.
+      config: loss, replay and schedule knobs.
+      optimizer: builds the optimizer from a parameter list, e.g.
+        ``functools.partial(optim.ClippedAdam, learning_rate=1e-4,
+        clip_norm=40.0)``; its ``step()`` returns the pre-clip norm.
+      seed: seeds the generator of the replay's sampling.
+    """
+
+    def __init__(
+        self,
+        engine: RolloutEngine,
+        agent: R2D2Agent,
+        config: R2D2Config,
+        optimizer: Callable[[List[torch.Tensor]], Any],
+        seed: int = 0,
+    ):
+        if engine.overlap != config.burn_in:
+            raise ValueError(
+                f"the rollout overlap ({engine.overlap}) must equal burn_in "
+                f"({config.burn_in})")
+        self.engine = engine
+        self.agent = agent
+        self.config = config
+        self.net = agent.net
+        self.target_net = copy.deepcopy(agent.net).requires_grad_(False)
+        self.optimizer = optimizer(self.parameters())
+        self.device = engine.env.device
+        self.num_envs = engine.env.num_envs
+        self.num_training_envs = self.num_envs - config.num_eval_envs
+        if self.num_training_envs <= 0:
+            raise ValueError("num_eval_envs must leave some training envs")
+        if config.replay_buffer_min_size > config.replay_buffer_size:
+            raise ValueError("replay_buffer_min_size exceeds the buffer")
+        self.replay = PrioritizedReplay(
+            config.replay_buffer_size, config.importance_sampling_exponent
+        )
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.frames_per_step = (
+            engine.unroll_length * self.num_envs * config.num_action_repeats
+        )
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """Everything the optimizer updates: the online network."""
+        return list(self.net.parameters())
+
+    def state_tensors(self, state: R2D2TrainState) -> List[torch.Tensor]:
+        return pytree.tree_leaves((
+            state.replay.buffer, state.replay.priorities, state.rollout,
+            state.stats, state.eval_stats,
+        ))
+
+    def sync_target(self):
+        """Hard update: target parameters <- online parameters."""
+        with torch.no_grad():
+            for t, p in zip(self.target_net.parameters(),
+                            self.net.parameters()):
+                t.copy_(p)
+
+    def _example_item(self, rollout: RolloutState) -> StoredUnroll:
+        """Zeros shaped like one replay item, from the primed rollout."""
+        steps = self.engine.overlap + self.engine.unroll_length + 1
+        ts = rollout.carry_timesteps
+
+        def per_step(t):
+            return torch.zeros((steps,) + tuple(t.shape[2:]), dtype=t.dtype,
+                               device=t.device)
+
+        return StoredUnroll(
+            agent_state=pytree.tree_map(
+                lambda t: torch.zeros_like(t[0]), rollout.agent_state),
+            prev_actions=pytree.tree_map(per_step, ts.prev_action),
+            env_outputs=pytree.tree_map(per_step, ts.env_output),
+            agent_outputs=pytree.tree_map(per_step, ts.agent_output),
+        )
+
+    def init(self) -> R2D2TrainState:
+        """Starts the rollout, an empty replay and the counters."""
+        rollout = self.engine.init()
+        return R2D2TrainState(
+            replay=self.replay.init_state(self._example_item(rollout)),
+            rollout=rollout,
+            stats=episode_stats.init(self.num_training_envs, self.device),
+            eval_stats=episode_stats.init(
+                max(self.config.num_eval_envs, 1), self.device),
+            step=0,
+        )
+
+    def _rollout_and_insert(self, state: R2D2TrainState) -> R2D2TrainState:
+        rollout, unroll = self.engine.rollout(state.rollout)
+        items = unroll_to_items(unroll, self.num_training_envs)
+        priorities = initial_priorities(self.config, items)
+        replay, _ = self.replay.insert(state.replay, items, priorities)
+
+        # Only the last T timesteps are new; the first overlap+1 are shared
+        # with the previous unroll (already counted in the stats window).
+        n = self.num_training_envs
+        new_steps = pytree.tree_map(
+            lambda x: x[self.engine.overlap + 1:], unroll.timesteps.env_output
+        )
+        stats = episode_stats.update(
+            state.stats, pytree.tree_map(lambda x: x[:, :n], new_steps))
+        eval_stats = state.eval_stats
+        if self.config.num_eval_envs:
+            eval_stats = episode_stats.update(
+                eval_stats, pytree.tree_map(lambda x: x[:, n:], new_steps))
+        return state._replace(
+            rollout=rollout, replay=replay, stats=stats,
+            eval_stats=eval_stats,
+        )
+
+    def warmup_step(self, state: R2D2TrainState) -> R2D2TrainState:
+        """Rollout + insert only: fills the buffer to its min size."""
+        return self._rollout_and_insert(state)
+
+    def train_on_batch(
+        self, state: R2D2TrainState, indices: Optional[torch.Tensor] = None
+    ) -> Tuple[R2D2TrainState, Dict[str, torch.Tensor]]:
+        """One optimization batch: sample (or take ``indices``), loss,
+        clip + Adam on the online net, priority write-back."""
+        config = self.config
+        indices, weights, items = self.replay.sample(
+            state.replay, self.generator, config.batch_size,
+            config.priority_exponent, indices=indices,
+        )
+        prev_actions, env_outputs, agent_outputs = _time_major(
+            (items.prev_actions, items.env_outputs, items.agent_outputs))
+        loss, priorities = compute_loss_and_priorities(
+            self.net, self.target_net, items.agent_state,
+            prev_actions, env_outputs, agent_outputs,
+            gamma=config.discounting,
+            burn_in=config.burn_in,
+            n_steps=config.n_steps,
+            rescaling_eps=config.value_function_rescaling_epsilon,
+            target=config.target,
+            retrace_lambda=config.retrace_lambda,
+        )
+        loss = torch.mean(loss * weights)
+        self.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = self.optimizer.step()
+        replay = self.replay.update_priorities(
+            state.replay, indices, priorities)
+        logs = {
+            "losses/td": loss.detach(),
+            "grad/norm": grad_norm,
+            "replay/sampled_priority_mean": torch.mean(priorities),
+            "replay/importance_weight_mean": torch.mean(weights),
+        }
+        return state._replace(replay=replay), logs
+
+    def train_step(
+        self, state: R2D2TrainState
+    ) -> Tuple[R2D2TrainState, Dict[str, torch.Tensor]]:
+        state = self._rollout_and_insert(state)
+        history = []
+        for _ in range(self.config.train_batches_per_step):
+            state, logs = self.train_on_batch(state)
+            history.append(logs)
+        step = state.step + 1
+        if step % self.config.update_target_every_n_step == 0:
+            self.sync_target()
+        return state._replace(step=step), _mean_metrics(history)
+
+    def train_many(
+        self, state: R2D2TrainState, num_steps: int
+    ) -> Tuple[R2D2TrainState, Dict[str, torch.Tensor]]:
+        """Run ``num_steps`` train steps; metrics averaged over them."""
+        history = []
+        for _ in range(num_steps):
+            state, metrics = self.train_step(state)
+            history.append(metrics)
+        return state, _mean_metrics(history)
+
+
+def learner_loop(
+    learner: R2D2Learner,
+    total_environment_frames: int,
+    logger=None,
+    log_every_steps: int = 10,
+    steps_per_call: int = 1,
+) -> Tuple[R2D2TrainState, Dict[str, Any]]:
+    """Warm up to ``replay_buffer_min_size``, then train to the budget.
+
+    Returns the final state and the metrics of the last call. Unlike
+    V-trace, both episode-stat windows (training and eval envs) reset on
+    every log line, as in the JAX package. Checkpointing waits for a later
+    slice.
+    """
+    state = learner.init()
+    while state.replay.num_inserted < learner.config.replay_buffer_min_size:
+        state = learner.warmup_step(state)
+    metrics: Dict[str, Any] = {}
+    frames_per_step = learner.frames_per_step
+    while state.step * frames_per_step < total_environment_frames:
+        state, metrics = learner.train_many(state, steps_per_call)
+        step = state.step
+        if logger is not None and step % log_every_steps < steps_per_call:
+            metrics = dict(metrics)
+            for name, stats in (
+                ("episodes", state.stats),
+                ("eval_episodes", state.eval_stats),
+            ):
+                n = float(stats.num_episodes)
+                if n > 0:
+                    metrics[f"{name}/mean_return"] = float(stats.sum_return) / n
+                    metrics[f"{name}/mean_length"] = float(stats.sum_length) / n
+            state = state._replace(
+                stats=episode_stats.reset_window(state.stats),
+                eval_stats=episode_stats.reset_window(state.eval_stats),
+            )
+            logger.log(step, metrics, frames=step * frames_per_step)
+    return state, metrics

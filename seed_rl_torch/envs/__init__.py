@@ -6,5 +6,9 @@ from seed_rl_torch.envs.core import (  # noqa: F401
     TensorSpec,
     TimeLimit,
 )
-from seed_rl_torch.envs.spaces import Box  # noqa: F401
-from seed_rl_torch.envs.toy import ToyEnv, ToyMemoryEnv  # noqa: F401
+from seed_rl_torch.envs.spaces import Box, Discrete  # noqa: F401
+from seed_rl_torch.envs.toy import (  # noqa: F401
+    DiscreteMatchEnv,
+    ToyEnv,
+    ToyMemoryEnv,
+)

@@ -1,7 +1,7 @@
 """The port's own action-space description (no gymnasium needed).
 
-Only what the port's tensor envs need: a ``Box``. Code that reads spaces
-(``distributions.get_parametric_distribution_for_action_space``,
+Only what the port's tensor envs need: ``Box`` and ``Discrete``. Code
+that reads spaces (``distributions.get_parametric_distribution_for_action_space``,
 ``rollout.zero_action_for_space``) duck-types on ``n``, ``nvec``,
 ``spaces`` and ``low``/``high``, so gymnasium spaces work there too.
 """
@@ -21,3 +21,13 @@ class Box:
 
     def __repr__(self):
         return f"Box({self.low.min()}, {self.high.max()}, {self.shape})"
+
+
+class Discrete:
+    """The actions ``0 .. n-1``, like ``gymnasium.spaces.Discrete``."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __repr__(self):
+        return f"Discrete({self.n})"

@@ -7,6 +7,8 @@ slice):
   target.
 - ``ToyMemoryEnv``: targets are visible only for the first ``horizon``
   steps and must be reproduced from memory afterwards.
+- ``DiscreteMatchEnv``: observe a one-hot target action, be rewarded 1 for
+  playing it (the R2D2 test env).
 
 The dynamics match the JAX package given the same targets; the random
 streams differ (``torch.Generator`` vs ``jax.random``).
@@ -17,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
-from seed_rl_torch.envs.spaces import Box
+from seed_rl_torch.envs.spaces import Box, Discrete
 
 
 def _uniform(shape, generator):
@@ -121,6 +123,53 @@ class ToyMemoryEnv(TensorEnv):
         return StepResult(
             state=new_state,
             observation=self._obs(new_state),
+            reward=reward,
+            terminated=terminated,
+            abandoned=torch.zeros_like(terminated),
+        )
+
+
+class _MatchState(NamedTuple):
+    t: torch.Tensor  # i32[B]
+    target: torch.Tensor  # i64[B] current target action
+
+
+class DiscreteMatchEnv(TensorEnv):
+    """Observe a one-hot target, be rewarded for playing it (DQN test env)."""
+
+    def __init__(self, n_actions: int = 4, horizon: int = 10):
+        self.n_actions = n_actions
+        self.horizon = horizon
+        self._action_space = Discrete(n_actions)
+
+    def observation_spec(self):
+        return TensorSpec((self.n_actions,), torch.float32)
+
+    @property
+    def action_space(self):
+        return self._action_space
+
+    def _draw_target(self, num_envs, generator):
+        return torch.randint(0, self.n_actions, (num_envs,),
+                             generator=generator, device=generator.device)
+
+    def _obs(self, target):
+        return torch.nn.functional.one_hot(target, self.n_actions).to(
+            torch.float32)
+
+    def reset(self, num_envs, generator):
+        target = self._draw_target(num_envs, generator)
+        t = torch.zeros(num_envs, dtype=torch.int32, device=target.device)
+        return _MatchState(t=t, target=target), self._obs(target)
+
+    def step(self, state, action, generator):
+        reward = (action == state.target).to(torch.float32)
+        target = self._draw_target(state.target.shape[0], generator)
+        t = state.t + 1
+        terminated = t >= self.horizon
+        return StepResult(
+            state=_MatchState(t=t, target=target),
+            observation=self._obs(target),
             reward=reward,
             terminated=terminated,
             abandoned=torch.zeros_like(terminated),

@@ -2,3 +2,4 @@ from seed_rl_torch.models.policy import (  # noqa: F401
     MLPAndLSTM,
     MLPPolicyNetwork,
 )
+from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet  # noqa: F401

@@ -11,6 +11,9 @@ returns the ``state_dict`` of the port's counterpart:
 
 Any tree of the same structure converts the same way, so a gradient tree
 of the JAX package lands on the port's ``.grad`` layout too.
+
+Networks: ``MLPAndLSTM``, ``MLPPolicyNetwork`` and ``VectorDuelingDQNNet``
+(whose single ``lstm`` cell and bias-free ``advantage_head`` map as above).
 """
 
 from typing import Dict, Tuple
@@ -18,6 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet
 from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
 
 _GATES = "ifgo"
@@ -90,12 +94,26 @@ def mlp_policy_network_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def vector_dueling_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    out = _mlp_torso(p["MLPTorso_0"], "torso.")
+    out.update(_lstm_cell(p["lstm"], "lstm.cells.0."))
+    for name in ("hidden_value", "value_head", "hidden_advantage"):
+        out.update(_dense(p[name], f"{name}."))
+    out["advantage_head.weight"] = _tensor(
+        np.asarray(p["advantage_head"]["kernel"]).T
+    )
+    return out
+
+
 def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``net``'s type built from a flax tree."""
     if isinstance(net, MLPAndLSTM):
         return mlp_and_lstm_state_dict(params)
     if isinstance(net, MLPPolicyNetwork):
         return mlp_policy_network_state_dict(params)
+    if isinstance(net, VectorDuelingDQNNet):
+        return vector_dueling_dqn_net_state_dict(params)
     raise TypeError(f"no flax converter for {type(net).__name__}")
 
 

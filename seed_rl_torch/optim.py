@@ -14,6 +14,13 @@ from typing import Iterable, List, Optional
 import torch
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all of ``grads`` together (optax ``global_norm``)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    )
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor],
                          max_norm: float) -> torch.Tensor:
     """Scales ``grads`` in place by ``max_norm / norm`` where the global norm
@@ -21,9 +28,7 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
 
     The choice is made on the device, so the step waits for no host sync.
     """
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads])
-    )
+    norm = global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)
@@ -66,13 +71,16 @@ class ClippedAdam:
     def zero_grad(self):
         self._adam.zero_grad(set_to_none=True)
 
-    def step(self):
+    def step(self) -> torch.Tensor:
+        """Clips, applies Adam; returns the global gradient norm before the
+        clip (what the JAX learners log as ``grad/norm``)."""
+        grads = [p.grad for p in self.params if p.grad is not None]
         if self.clip_norm is not None:
-            clip_by_global_norm_(
-                [p.grad for p in self.params if p.grad is not None],
-                self.clip_norm,
-            )
+            norm = clip_by_global_norm_(grads, self.clip_norm)
+        else:
+            norm = global_norm(grads)
         for group in self._adam.param_groups:
             group["lr"] = self.learning_rate()
         self._adam.step()
         self.count += 1
+        return norm

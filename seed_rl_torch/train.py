@@ -1,20 +1,28 @@
-"""Training entry point: ``python -m seed_rl_torch.train --agent=vtrace ...``.
+"""Training entry point: ``python -m seed_rl_torch.train --agent=... ...``.
 
-Port of the ``--agent=vtrace --env={toy,toy_memory}`` path of
-``seed_rl_tpu/train.py``, with the same flag names and defaults, plus
-``--device`` (default: the CUDA device; ``--device=cpu`` runs on the CPU).
-Other agents, envs, run modes, checkpoints and observation normalization
-are not ported yet and raise ``NotImplementedError`` rather than being
-ignored.
+Port of two paths of ``seed_rl_tpu/train.py``, with the same flag names and
+defaults, plus ``--device`` (default: the CUDA device; ``--device=cpu``
+runs on the CPU):
+- ``--agent=vtrace --env={toy,toy_memory}`` (``MLPAndLSTM``);
+- ``--agent=r2d2 --env=discrete_match`` (``VectorDuelingDQNNet``, the fused
+  on-device learner with prioritized replay).
+Other agent/env pairs, run modes, checkpoints, observation normalization,
+host-env replay ratios and more than one replica are not ported yet and
+raise ``NotImplementedError`` rather than being ignored.
 
-Example (the README's quick-start config):
+Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
       --num_envs=64 --unroll_length=10 --total_environment_frames=200000
+  python -m seed_rl_torch.train --agent=r2d2 --env=discrete_match \
+      --num_envs=32 --unroll_length=10 --burn_in=4 \
+      --replay_buffer_min_size=100 --total_environment_frames=50000
 """
 
 import argparse
 import functools
 import math
+
+import torch
 
 from seed_rl_torch.device import resolve_device
 
@@ -27,8 +35,8 @@ ENVS = [
     "dmlab", "football",
 ]
 RUN_MODES = ["train", "eval", "profile", "actor", "learner"]
-PORTED_AGENTS = ("vtrace",)
-PORTED_ENVS = ("toy", "toy_memory")
+# agent -> the envs it is ported for.
+PORTED = {"vtrace": ("toy", "toy_memory"), "r2d2": ("discrete_match",)}
 
 
 def parse_args(argv=None):
@@ -56,6 +64,32 @@ def parse_args(argv=None):
     p.add_argument("--steps_per_call", type=int, default=10)
     p.add_argument("--log_every_steps", type=int, default=20)
     p.add_argument("--normalize_observations", action="store_true")
+    p.add_argument("--num_replicas", type=int, default=0,
+                   help="0 = all local devices; more than one is not "
+                        "ported yet")
+    p.add_argument("--debug_asserts", action="store_true",
+                   help="enable the replay's contract checks (priority "
+                        "validity, ring bounds); each check waits for the "
+                        "device, so they are off by default")
+    # R2D2.
+    p.add_argument("--burn_in", type=int, default=40)
+    p.add_argument("--n_steps", type=int, default=5)
+    p.add_argument("--target", default="nstep", choices=["nstep", "retrace"],
+                   help="R2D2 target estimator: n-step Bellman or "
+                        "Retrace(lambda) clipped-trace targets")
+    p.add_argument("--retrace_lambda", type=float, default=0.95)
+    p.add_argument("--replay_buffer_size",
+                   type=lambda s: int(float(s)), default=10_000,
+                   help="unrolls, kept on the device")
+    p.add_argument("--replay_buffer_min_size", type=int, default=500,
+                   help="buffer fill before training starts")
+    p.add_argument("--replay_ratio", type=float, default=None,
+                   help="host-env off-policy agents only (not ported yet)")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--update_target_every_n_step", type=int, default=2500)
+    p.add_argument("--train_batches_per_step", type=int, default=1,
+                   help="R2D2 optimization batches per rollout cycle")
+    p.add_argument("--num_eval_envs", type=int, default=0)
     return p.parse_args(argv)
 
 
@@ -66,10 +100,10 @@ def _refuse_unported(args):
             "python -m seed_rl_tpu.train (see ROADMAP.md queue A)"
         )
 
-    if args.agent not in PORTED_AGENTS:
+    if args.agent not in PORTED:
         refuse(f"--agent={args.agent}")
-    if args.env not in PORTED_ENVS:
-        refuse(f"--env={args.env}")
+    if args.env not in PORTED[args.agent]:
+        refuse(f"--env={args.env} with --agent={args.agent}")
     if args.run_mode != "train":
         refuse(f"--run_mode={args.run_mode}")
     if args.logdir is not None:
@@ -78,12 +112,28 @@ def _refuse_unported(args):
         refuse("--init_checkpoint")
     if args.normalize_observations:
         refuse("--normalize_observations")
+    if args.replay_ratio is not None:
+        refuse("--replay_ratio (host-env replay)")
+
+
+def _refuse_replicas(args, device):
+    replicas = args.num_replicas or (
+        torch.cuda.device_count() if device.type == "cuda" else 1)
+    if replicas > 1:
+        raise NotImplementedError(
+            f"--num_replicas={args.num_replicas} ({replicas} replicas) is "
+            "not ported to seed_rl_torch yet; pass --num_replicas=1"
+        )
 
 
 def make_env(args, device):
     from seed_rl_torch import envs
 
-    env = envs.ToyEnv() if args.env == "toy" else envs.ToyMemoryEnv()
+    env = {
+        "toy": envs.ToyEnv,
+        "toy_memory": envs.ToyMemoryEnv,
+        "discrete_match": envs.DiscreteMatchEnv,
+    }[args.env]()
     return envs.BatchedEnv(env, args.num_envs, device=device, seed=0)
 
 
@@ -92,20 +142,21 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    _refuse_replicas(args, device)
 
-    from seed_rl_torch import distributions as pd
     from seed_rl_torch import optim
-    from seed_rl_torch.agent import PolicyAgent
-    from seed_rl_torch.agents import vtrace as vtrace_agent
-    from seed_rl_torch.models import MLPAndLSTM
-    from seed_rl_torch.rollout import RolloutEngine
+    from seed_rl_torch.utils import debug_asserts
     from seed_rl_torch.utils.metrics import MetricsLogger
 
+    debug_asserts.enable(args.debug_asserts)
     env = make_env(args, device)
-    # Linear decay over optimizer updates (one per V-trace step), the
-    # reference's PolynomialDecay with power 1.
+    # Linear decay over optimizer updates, the reference's PolynomialDecay
+    # with power 1: one update per V-trace step, train_batches_per_step per
+    # R2D2 step.
     frames_per_rollout = max(1, args.num_envs * args.unroll_length)
-    rollouts = max(1, args.total_environment_frames // frames_per_rollout)
+    updates = max(1, args.total_environment_frames // frames_per_rollout)
+    if args.agent == "r2d2":
+        updates *= max(1, args.train_batches_per_step)
     decay = args.lr_decay_multiplier != 1.0
     optimizer = functools.partial(
         optim.ClippedAdam,
@@ -116,8 +167,28 @@ def main(argv=None):
         end_learning_rate=(
             args.lr_decay_multiplier * args.learning_rate if decay else None
         ),
-        transition_steps=rollouts,
+        transition_steps=updates,
     )
+    if args.agent == "r2d2":
+        learner, loop = _r2d2_learner(args, env, optimizer, device)
+    else:
+        learner, loop = _vtrace_learner(args, env, optimizer, device)
+    state, metrics = loop(
+        learner,
+        args.total_environment_frames,
+        logger=MetricsLogger(),
+        log_every_steps=args.log_every_steps,
+        steps_per_call=args.steps_per_call,
+    )
+    return learner, state, metrics
+
+
+def _vtrace_learner(args, env, optimizer, device):
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agents import vtrace as vtrace_agent
+    from seed_rl_torch.models import MLPAndLSTM
+    from seed_rl_torch.rollout import RolloutEngine
 
     dist = pd.get_parametric_distribution_for_action_space(env.action_space)
     net = MLPAndLSTM(
@@ -135,14 +206,45 @@ def main(argv=None):
     learner = vtrace_agent.VTraceLearner(
         engine, agent, config, optimizer, seed=2
     )
-    state, metrics = vtrace_agent.learner_loop(
-        learner,
-        args.total_environment_frames,
-        logger=MetricsLogger(),
-        log_every_steps=args.log_every_steps,
-        steps_per_call=args.steps_per_call,
+    return learner, vtrace_agent.learner_loop
+
+
+def _r2d2_learner(args, env, optimizer, device):
+    from seed_rl_torch.agents import r2d2
+    from seed_rl_torch.models import VectorDuelingDQNNet
+    from seed_rl_torch.rollout import RolloutEngine
+
+    net = VectorDuelingDQNNet(
+        num_actions=env.action_space.n,
+        input_size=math.prod(env.observation_spec().shape),
+        seed=0,
+        device=device,
     )
-    return learner, state, metrics
+    num_training = args.num_envs - args.num_eval_envs
+    config = r2d2.R2D2Config(
+        discounting=args.discounting,
+        n_steps=args.n_steps,
+        burn_in=args.burn_in,
+        replay_buffer_size=args.replay_buffer_size,
+        replay_buffer_min_size=args.replay_buffer_min_size,
+        batch_size=args.batch_size,
+        update_target_every_n_step=args.update_target_every_n_step,
+        num_eval_envs=args.num_eval_envs,
+        train_batches_per_step=args.train_batches_per_step,
+        target=args.target,
+        retrace_lambda=args.retrace_lambda,
+    )
+    epsilons = torch.cat([
+        r2d2.training_env_epsilons(num_training, device),
+        torch.full((args.num_eval_envs,), config.eval_epsilon, device=device),
+    ])
+    agent = r2d2.R2D2Agent(net, epsilons)
+    engine = RolloutEngine(
+        env, agent, args.unroll_length, num_overlapping_steps=args.burn_in,
+        seed=1,
+    )
+    learner = r2d2.R2D2Learner(engine, agent, config, optimizer, seed=2)
+    return learner, r2d2.learner_loop
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@
   ``observation`` is the observation *after* the transition, and the first
   observation of the next episode when ``done`` is set.
 - ``AgentOutput = (action, policy_logits, baseline)`` for policy agents.
+- ``QAgentOutput = (action, q_values)`` for Q agents (R2D2).
 
-Both are plain ``NamedTuple``s of tensors, so ``torch.utils._pytree`` maps
+All are plain ``NamedTuple``s of tensors, so ``torch.utils._pytree`` maps
 over them like the JAX package maps over its pytrees.
 """
 
@@ -39,3 +40,10 @@ class AgentOutput(NamedTuple):
     action: Any
     policy_logits: Any
     baseline: Any
+
+
+class QAgentOutput(NamedTuple):
+    """Q-agent output (R2D2)."""
+
+    action: Any
+    q_values: Any

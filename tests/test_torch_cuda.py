@@ -1,4 +1,5 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernels themselves.
+"""Tests of the port that need an NVIDIA card: the CUDA kernels themselves
+and short training runs through them.
 
 Marked ``cuda``; each skips where torch sees no CUDA device. This file
 imports no JAX, so it also runs on a machine with the card and no JAX:
@@ -12,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops import vtrace as plain
-from seed_rl_torch.ops.cuda import vtrace_kernel
+from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -83,4 +85,93 @@ def test_vtrace_train_step_runs_on_the_card(cuda):
     assert state.step == 2 and vtrace_kernel.launches == 2
     assert all(math.isfinite(float(v)) for v in metrics.values())
     for t in learner.parameters() + learner.state_tensors(state):
+        assert t.device.type == "cuda"
+
+
+def _nstep_inputs(T, B, A, seed, device):
+    rng = np.random.RandomState(seed)
+    return dict(
+        q_values=torch.tensor(rng.normal(size=(T, B, A)), dtype=torch.float32,
+                              device=device),
+        target_q_values=torch.tensor(rng.normal(size=(T, B, A)),
+                                     dtype=torch.float32, device=device),
+        online_argmax_action=torch.tensor(rng.randint(0, A, (T, B)),
+                                          dtype=torch.int32, device=device),
+        replay_action=torch.tensor(rng.randint(0, A, (T, B)),
+                                   dtype=torch.int32, device=device),
+        rewards=torch.tensor(rng.normal(size=(T, B)), dtype=torch.float32,
+                             device=device),
+        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=torch.bool,
+                          device=device),
+    )
+
+
+# (T, B, A, n_steps, gamma, eta): the R2D2 loss and insert shapes, the
+# tests/test_pallas_nstep.py cases, n >= T with an odd B, and T = 2.
+NSTEP_CASES = [
+    (81, 64, 4, 5, 0.997, 0.9),
+    (81, 610, 4, 5, 0.997, 0.9),
+    (11, 256, 6, 5, 0.997, 0.9),
+    (7, 64, 4, 3, 0.99, 0.7),
+    (3, 37, 4, 5, 0.997, 0.9),
+    (2, 1, 4, 1, 0.997, 0.9),
+]
+
+
+@pytest.mark.parametrize("T,B,A,n,gamma,eta", NSTEP_CASES)
+def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta):
+    kwargs = _nstep_inputs(T, B, A, T + B, cuda)
+    q = kwargs.pop("q_values")
+    q_kernel = q.clone().requires_grad_(True)
+    q_plain = q.clone().requires_grad_(True)
+    kw = dict(gamma=gamma, n_steps=n, eta=eta)
+    before = nstep_kernel.launches
+    loss, pri = nstep_kernel.td_loss_and_priorities(q_kernel, **kwargs, **kw)
+    want_loss, want_pri = value_ops.td_loss_and_priorities(
+        q_plain, **kwargs, **kw)
+    torch.cuda.synchronize()
+    assert nstep_kernel.launches == before + 1
+    torch.testing.assert_close(loss, want_loss, **TOL)
+    torch.testing.assert_close(pri, want_pri, **TOL)
+    (g_kernel,) = torch.autograd.grad(loss.sum(), q_kernel)
+    (g_plain,) = torch.autograd.grad(want_loss.sum(), q_plain)
+    torch.testing.assert_close(g_kernel, g_plain, rtol=1e-3, atol=1e-4)
+
+
+def test_nstep_kernel_refuses_what_it_does_not_take(cuda):
+    kwargs = _nstep_inputs(4, 8, 3, 0, cuda)
+    kw = dict(gamma=0.99, n_steps=2)
+    with pytest.raises(ValueError, match="T >= 2"):
+        nstep_kernel.td_loss_and_priorities(
+            **{k: v[:1] for k, v in kwargs.items()}, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = kwargs["rewards"].t().contiguous().t()
+        nstep_kernel.td_loss_and_priorities(
+            **dict(kwargs, rewards=strided), **kw)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        nstep_kernel.td_loss_and_priorities(
+            **dict(kwargs, rewards=kwargs["rewards"].cpu()), **kw)
+    with pytest.raises(TypeError):
+        nstep_kernel.td_loss_and_priorities(
+            **dict(kwargs, rewards=kwargs["rewards"].to(torch.int32)), **kw)
+
+
+def test_r2d2_train_step_runs_on_the_card(cuda):
+    from seed_rl_torch import train
+
+    nstep_kernel.launches = 0
+    learner, state, metrics = train.main([
+        "--agent=r2d2", "--env=discrete_match", "--num_envs=64",
+        "--num_eval_envs=4", "--unroll_length=10", "--burn_in=4",
+        "--batch_size=16", "--replay_buffer_size=256",
+        "--replay_buffer_min_size=100", "--train_batches_per_step=2",
+        "--total_environment_frames=1280", "--steps_per_call=1",
+        "--log_every_steps=1",
+    ])
+    # 2 warmup rollouts, then 2 steps of 1 insert + 2 batches.
+    assert state.step == 2 and nstep_kernel.launches == 2 + 2 * 3
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    tensors = (learner.parameters() + list(learner.target_net.parameters())
+               + learner.state_tensors(state))
+    for t in tensors:
         assert t.device.type == "cuda"
