@@ -8,13 +8,18 @@ Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build every CUDA kernel from seed_rl_torch/csrc, one nvcc each, all
      started together (vtrace_kernel, nstep_kernel);
-  3. hold each kernel against its plain PyTorch version on the card:
-     V-trace at 5 shapes, the n-step targets and priorities at 6 (loss,
+  3. hold each kernel against its plain PyTorch version on the card, and
+     print its launch (blocks, threads, rows per chunk, shared memory per
+     block, at most 227 KB): V-trace at 8 shapes, the n-step targets and
+     priorities at 11, each with done as bool and as f32 (loss,
      priorities within rtol = atol = 1e-5, and the gradient of the summed
      loss in the Q values within rtol 1e-3 / atol 1e-4);
   4. time each kernel and its plain version with CUDA events at the main
      path's shapes, its device-only time with torch.profiler, beside the
-     least time the card could take for the same work;
+     least time the card could take for the same work and the device time
+     of an empty kernel (the launch floor); the first, row-serial design's
+     device time, from an earlier run of this script, is printed beside it
+     for comparison;
   5. train V-trace on the toy env through seed_rl_torch.train.main at the
      default MLPAndLSTM width (num_envs=1024, unroll_length=32), with the
      V-trace launch count reset just before; check one launch per train
@@ -29,8 +34,8 @@ Phases, in order; any failure exits non-zero:
      on the run's own sampled batch; time the step and its halves;
   7. print the kernels line (JSON): for each kernel, at its main-path
      shape, the wrapper's ms per call, the kernel's device-only ms, the
-     plain version's ms and the bound (the n-step kernel: the loss shape,
-     and the insert shape under "insert").
+     plain version's ms, the bound and the launch floor (the n-step
+     kernel: the loss shape, and the insert shape under "insert").
 The last line of standard output is the device JSON:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -51,6 +56,8 @@ import torch.utils._pytree as pytree
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# Shared memory one block may use on an H100.
+BLOCK_SMEM_BYTES = 227 * 1024
 
 VTRACE_TOL = 1e-5
 # (T, B, lambda_, clip_rho_threshold, clip_pg_rho_threshold)
@@ -60,6 +67,11 @@ VTRACE_CASES = (
     (12, 256, 0.95, 1.0, 1.0),
     (5, 128, 1.0, None, None),
     (1, 37, 1.0, 1.0, 1.0),
+    # T across the kernel's 32-row chunks, also with the clips off and at
+    # B off its 32-column tile.
+    (200, 1000, 1.0, 1.0, 1.0),
+    (70, 37, 0.9, None, None),
+    (33, 1, 1.0, 1.0, 1.0),
 )
 # Arithmetic of one [t, b] element in csrc/vtrace_kernel.cu (exp counted
 # as one): log-ratio, exp, 3 clips, lambda, delta 4, recursion 3, vs 1,
@@ -72,7 +84,9 @@ NSTEP_TOL = 1e-5
 NSTEP_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 # (T, B, A, n_steps, gamma, eta): the R2D2 loss shape (unroll 80 + 1 after
 # the burn-in, batch 64), the insert shape (610 training envs), the
-# tests/test_pallas_nstep.py cases, n >= T with an odd B, and T = 2.
+# tests/test_pallas_nstep.py cases, n >= T with an odd B, T = 2, T - 1
+# across the kernel's 128-row chunks, B off its 16-column tile, and n - 1
+# past its 64-row staged halo.
 NSTEP_LOSS_SHAPE, NSTEP_INSERT_SHAPE = (81, 64), (81, 610)
 NSTEP_CASES = (
     (81, 64, 4, 5, 0.997, 0.9),
@@ -81,6 +95,11 @@ NSTEP_CASES = (
     (7, 64, 4, 3, 0.99, 0.7),
     (3, 37, 4, 5, 0.997, 0.9),
     (2, 1, 4, 1, 0.997, 0.9),
+    (300, 70, 4, 5, 0.997, 0.9),
+    (81, 37, 4, 5, 0.997, 0.9),
+    (40, 1, 3, 5, 0.99, 0.9),
+    (6, 64, 4, 8, 0.99, 0.9),
+    (300, 16, 4, 100, 0.997, 0.9),
 )
 # Arithmetic of one [t, b] element in csrc/nstep_kernel.cu (sqrt and
 # division counted as one): h^-1 11, the n-step nesting 3 per step (n = 5),
@@ -101,6 +120,15 @@ R2D2_ARGV = [
     "--steps_per_call=1", "--log_every_steps=1",
 ]
 R2D2_TIMED_STEPS = 5
+
+# Device time (torch.profiler, 20 launches) of each kernel's first design,
+# one thread per column walking every row in series, as this script
+# measured it in its last run with that design on an NVIDIA H100 80GB HBM3
+# at its 700 W power limit. That design is no longer in the tree: phase 4
+# prints these beside the current design's times, marked as not measured
+# in this run, and the kernels line leaves them out.
+FIRST_DESIGN_DEVICE_MS = {"vtrace": 0.009692, "nstep loss": 0.072696,
+                          "nstep insert": 0.078411}
 
 
 def _vtrace_inputs(T, B, seed, device):
@@ -139,7 +167,7 @@ def _cuda_ms(fn, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _nstep_inputs(T, B, A, seed, device):
+def _nstep_inputs(T, B, A, seed, device, done_dtype=torch.bool):
     rng = np.random.RandomState(seed)
 
     def f32(a):
@@ -154,15 +182,16 @@ def _nstep_inputs(T, B, A, seed, device):
         online_argmax_action=i32(rng.randint(0, A, (T, B))),
         replay_action=i32(rng.randint(0, A, (T, B))),
         rewards=f32(rng.normal(size=(T, B))),
-        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=torch.bool,
+        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=done_dtype,
                           device=device),
     )
 
 
-def _nstep_bound_ms(T, B):
-    # Four [T, B] f32 inputs read, [T-1, B] targets and [B] priorities
-    # written.
-    bytes_moved = (4 * T * B + (T - 1) * B + B) * 4
+def _nstep_bound_ms(T, B, done):
+    # Three [T, B] f32 inputs and done (1 byte an element as bool, 4 as f32)
+    # read, [T-1, B] targets and [B] priorities written.
+    bytes_moved = ((3 * 4 + done.element_size()) * T * B
+                   + ((T - 1) * B + B) * 4)
     ops = NSTEP_OPS_PER_ELEMENT * T * B
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / FP32_FLOPS_PER_S * 1e3
@@ -192,13 +221,21 @@ def _nstep_compare(kernel_args, plain_args, kw, what):
 def check_nstep_kernel(device):
     """Phase 3: the n-step kernel vs its plain version, with the gradient
     of the summed loss in the Q values; returns max |err|."""
+    from seed_rl_torch.ops.cuda import nstep_kernel
+
     max_err = 0.0
-    for seed, (T, B, A, n, gamma, eta) in enumerate(NSTEP_CASES):
-        inputs = _nstep_inputs(T, B, A, seed, device)
+    cases = [(case, dtype) for case in NSTEP_CASES
+             for dtype in (torch.bool, torch.float32)]
+    for seed, ((T, B, A, n, gamma, eta), done_dtype) in enumerate(cases):
+        inputs = _nstep_inputs(T, B, A, seed, device, done_dtype)
         q = inputs.pop("q_values")
         q_kernel = q.clone().requires_grad_(True)
         q_plain = q.clone().requires_grad_(True)
-        what = f"T={T} B={B} A={A} n={n} gamma={gamma} eta={eta}"
+        what = (f"T={T} B={B} A={A} n={n} gamma={gamma} eta={eta} done "
+                f"{str(done_dtype).split('.')[-1]}")
+        plan = nstep_kernel.launch_plan(T, n)
+        _print_launch(f"nstep {what}", nstep_kernel.launch_shape(T, B, n),
+                      f"{plan.chunk} rows per chunk, window {plan.window}")
         kw = dict(gamma=gamma, n_steps=n, eta=eta)
         err, (loss, _), (want_loss, _) = _nstep_compare(
             [q_kernel, *inputs.values()], [q_plain, *inputs.values()], kw,
@@ -213,12 +250,41 @@ def check_nstep_kernel(device):
     return max_err
 
 
-def _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by):
+def _print_launch(what, shape, chunking):
+    """Phase 3: one shape's launch; raises past a block's shared memory."""
+    print(f"{what}: launch {shape.blocks} blocks of {shape.threads} threads, "
+          f"{chunking}, {shape.smem_bytes} B shared memory per block")
+    if shape.smem_bytes > BLOCK_SMEM_BYTES:
+        raise RuntimeError(f"{what}: {shape.smem_bytes} B of shared memory "
+                           f"per block, past {BLOCK_SMEM_BYTES}")
+
+
+def _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by,
+            floor_ms):
     """One shape's phase-4 numbers, under the kernels line's keys: ``ms``
-    is the wrapper's call (CUDA events), ``device_ms`` the kernel alone
-    (torch.profiler; None where it shows no device rows)."""
+    is the wrapper's call (CUDA events), ``device_ms`` the kernel alone and
+    ``launch_floor_ms`` an empty kernel (torch.profiler; None where it
+    shows no device rows)."""
     return {"shape": [T, B], "ms": kernel_ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launch_floor_ms": floor_ms}
+
+
+def _shown(ms):
+    return "not measured (no profiler rows)" if ms is None else f"{ms:.6f} ms"
+
+
+def time_launch_floor(device):
+    """Phase 4: the device time of one empty kernel (one block of 32
+    threads), the least any launch costs; None where the profiler shows no
+    device rows."""
+    from seed_rl_torch.ops.cuda import vtrace_kernel
+
+    floor_ms = _profiled_device_ms(
+        lambda: vtrace_kernel.launch_floor(device), "launch_floor")
+    print(f"launch floor: an empty kernel on the device {_shown(floor_ms)} "
+          f"(torch.profiler, 20 launches)")
+    return floor_ms
 
 
 def _profiled_device_ms(fn, key, iters=20):
@@ -236,7 +302,7 @@ def _profiled_device_ms(fn, key, iters=20):
     return rows[0].self_device_time_total / rows[0].count / 1e3
 
 
-def time_nstep_kernel(device):
+def time_nstep_kernel(device, floor_ms):
     """Phase 4: the n-step kernel and its plain version at both shapes of
     the R2D2 path; returns each shape's numbers by name."""
     from seed_rl_torch.ops import value_ops
@@ -256,15 +322,16 @@ def time_nstep_kernel(device):
         device_ms = _profiled_device_ms(
             lambda: nstep_kernel.td_loss_and_priorities(**inputs, **kw),
             "nstep")
-        bound_ms, bound_by = _nstep_bound_ms(T, B)
-        shown = ("not measured (no profiler rows)" if device_ms is None
-                 else f"{device_ms:.6f} ms")
+        bound_ms, bound_by = _nstep_bound_ms(T, B, inputs["done"])
         print(f"nstep {name} T={T} B={B}: wrapper+kernel {kernel_ms:.6f} ms "
               f"per call (CUDA events over back-to-back calls), kernel alone "
-              f"on the device {shown} (torch.profiler), plain "
-              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+              f"on the device {_shown(device_ms)} (torch.profiler; first "
+              f"design {FIRST_DESIGN_DEVICE_MS[f'nstep {name}']:.6f} ms in "
+              f"an earlier run, not measured here), launch floor "
+              f"{_shown(floor_ms)}, bound {bound_ms:.6f} ms ({bound_by}), "
+              f"plain {plain_ms:.6f} ms")
         results[name] = _timing(T, B, kernel_ms, device_ms, plain_ms,
-                                bound_ms, bound_by)
+                                bound_ms, bound_by, floor_ms)
     return results
 
 
@@ -275,6 +342,10 @@ def check_vtrace_kernel(device):
 
     max_err = 0.0
     for seed, (T, B, lam, clip_rho, clip_pg) in enumerate(VTRACE_CASES):
+        plan = vtrace_kernel.launch_plan(T)
+        _print_launch(f"vtrace T={T} B={B}", vtrace_kernel.launch_shape(T, B),
+                      f"{plan.chunk} rows per chunk, {plan.buffers} staging "
+                      f"buffer(s)")
         args = _vtrace_inputs(T, B, seed, device)
         kwargs = dict(clip_rho_threshold=clip_rho,
                       clip_pg_rho_threshold=clip_pg, lambda_=lam)
@@ -290,7 +361,7 @@ def check_vtrace_kernel(device):
     return max_err
 
 
-def time_vtrace_kernel(device):
+def time_vtrace_kernel(device, floor_ms):
     """Phase 4: kernel and plain times at the main-path shape."""
     from seed_rl_torch.ops import vtrace as plain
     from seed_rl_torch.ops.cuda import vtrace_kernel
@@ -308,12 +379,13 @@ def time_vtrace_kernel(device):
 
     device_ms = _profiled_device_ms(
         lambda: vtrace_kernel.from_importance_weights(*args), "vtrace")
-    if device_ms is None:
-        print("vtrace kernel device time: not measured (no profiler rows)")
-    else:
-        print(f"vtrace T={T} B={B}: kernel alone on the device "
-              f"{device_ms:.6f} ms (torch.profiler, 20 launches)")
-    return _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by)
+    print(f"vtrace T={T} B={B}: kernel alone on the device "
+          f"{_shown(device_ms)} (torch.profiler, 20 launches; first design "
+          f"{FIRST_DESIGN_DEVICE_MS['vtrace']:.6f} ms in an earlier run, not "
+          f"measured here), launch floor {_shown(floor_ms)}, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    return _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by,
+                   floor_ms)
 
 
 def run_training(card):
@@ -556,8 +628,9 @@ def main():
 
     vtrace_err = check_vtrace_kernel(device)
     nstep_err = check_nstep_kernel(device)
-    vtrace_times = time_vtrace_kernel(device)
-    nstep_times = time_nstep_kernel(device)
+    floor_ms = time_launch_floor(device)
+    vtrace_times = time_vtrace_kernel(device, floor_ms)
+    nstep_times = time_nstep_kernel(device, floor_ms)
     vtrace_launches = run_training(smi)["vtrace"]
     nstep_launches, own_batch_err = run_r2d2(smi)
 

@@ -15,11 +15,17 @@ stop-gradient; the loss ``0.5 * sum_t (target - Q_replay)^2`` is formed
 here from the differentiable gathered Q, which is where gradients flow. For
 CPU tensors both functions run the plain version
 (``seed_rl_torch.ops.value_ops``); for CUDA tensors they launch the kernel
-on the current stream or raise.
+on the current stream or raise. ``done`` goes to the kernel as it comes,
+bool bytes or f32, without a cast.
+
+``launch_plan`` picks the kernel's row chunk and staged window from the
+shape; the kernel takes its block shape and shared memory from its own
+constants and the plan. ``launch_shape`` asks the built kernel what launch
+a shape gets.
 """
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -32,18 +38,56 @@ KERNEL_NAME = "nstep_kernel"
 # the training path went through the kernel).
 launches = 0
 
-_forward = None
+_library_handle = None
+
+# The largest chunk of output rows and halo of staged rows
+# csrc/nstep_kernel.cu is built for (kMaxChunk, kMaxHalo).
+MAX_CHUNK, MAX_HALO = 128, 64
 
 
-def _kernel_fn():
-    global _forward
-    if _forward is None:
-        fn = build.load_library(KERNEL_NAME).seed_rl_nstep_forward
+class LaunchPlan(NamedTuple):
+    chunk: int  # output rows per chunk: chunk k takes [k * chunk, ...)
+    window: int  # rows of rewards and done staged per chunk
+
+
+class LaunchShape(NamedTuple):
+    blocks: int
+    threads: int  # per block
+    smem_bytes: int  # per block
+
+
+def launch_plan(T: int, n_steps: int) -> LaunchPlan:
+    """The kernel's chunking of [T, B] inputs: the ``T - 1`` output rows in
+    chunks of at most ``MAX_CHUNK``, each staging its rows of rewards and
+    done plus a halo of up to ``n_steps - 1`` rows (at most ``MAX_HALO``;
+    the kernel reads rows past it from device memory)."""
+    if T < 2 or n_steps < 1:
+        raise ValueError(f"no n-step launch for T={T}, n={n_steps}")
+    chunk = min(T - 1, MAX_CHUNK)
+    return LaunchPlan(chunk, min(chunk + min(n_steps - 1, MAX_HALO), T - 1))
+
+
+def _library():
+    global _library_handle
+    if _library_handle is None:
+        lib = build.load_library(KERNEL_NAME)
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [ptr] * 6 + [i32, i32, i32, f64, f64, f64, ptr]
-        fn.restype = ctypes.c_int
-        _forward = fn
-    return _forward
+        lib.seed_rl_nstep_forward.argtypes = (
+            [ptr] * 6 + [i32, i32, i32, f64, f64, f64, i32, i32, i32, ptr])
+        lib.seed_rl_nstep_launch_shape.argtypes = (
+            [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
+        _library_handle = lib
+    return _library_handle
+
+
+def launch_shape(T: int, B: int, n_steps: int) -> LaunchShape:
+    """The launch the built kernel makes for [T, B] inputs."""
+    out = [ctypes.c_int() for _ in LaunchShape._fields]
+    err = _library().seed_rl_nstep_launch_shape(
+        B, *launch_plan(T, n_steps), *map(ctypes.byref, out))
+    if err != 0:
+        raise ValueError(f"no n-step launch for T={T}, B={B}, n={n_steps}")
+    return LaunchShape(*(x.value for x in out))
 
 
 def _check(q_values, target_q_values, online_argmax_action, replay_action,
@@ -120,18 +164,21 @@ def td_loss_and_priorities(
         ).contiguous()
         kernel_q = replay_q.detach().contiguous()
         rewards_f = rewards.detach().to(torch.float32)
-        done_f = done.detach().to(torch.float32)
+        done_is_bool = done.dtype == torch.bool
+        done_k = done.detach() if done_is_bool else done.detach().to(
+            torch.float32)
     targets = torch.empty((T - 1, B), dtype=torch.float32,
                           device=q_values.device)
     priorities = torch.empty((B,), dtype=torch.float32,
                              device=q_values.device)
-    fn = _kernel_fn()
+    plan = launch_plan(T, int(n_steps))
+    lib = _library()
     with torch.cuda.device(q_values.device):
-        err = fn(
-            qtarget_max.data_ptr(), rewards_f.data_ptr(), done_f.data_ptr(),
+        err = lib.seed_rl_nstep_forward(
+            qtarget_max.data_ptr(), rewards_f.data_ptr(), done_k.data_ptr(),
             kernel_q.data_ptr(), targets.data_ptr(), priorities.data_ptr(),
             T, B, int(n_steps), float(gamma), float(eta),
-            float(rescaling_eps),
+            float(rescaling_eps), int(done_is_bool), plan.chunk, plan.window,
             torch.cuda.current_stream(q_values.device).cuda_stream,
         )
     if err != 0:

@@ -9,10 +9,16 @@ plain C function loaded with ctypes (see ``build.py``).
 tensors it runs the plain version (``seed_rl_torch.ops.vtrace``); for CUDA
 tensors it launches the kernel on the current stream or raises. Both
 outputs are stop-gradient, as on the TPU: the inputs are detached.
+
+``launch_plan`` picks the kernel's row chunk and staging buffers from the
+shape; the kernel takes its block shape and shared memory from its own
+constants and the plan. ``launch_shape`` asks the built kernel what launch
+a shape gets. ``launch_floor`` launches the empty kernel beside it, the
+least any launch costs on the card.
 """
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,18 +31,65 @@ KERNEL_NAME = "vtrace_kernel"
 # the training path went through the kernel).
 launches = 0
 
-_forward = None
+_library_handle = None
+
+# The largest chunk of rows csrc/vtrace_kernel.cu is built for (kMaxChunk).
+MAX_CHUNK = 32
 
 
-def _kernel_fn():
-    global _forward
-    if _forward is None:
-        fn = build.load_library(KERNEL_NAME).seed_rl_vtrace_forward
+class LaunchPlan(NamedTuple):
+    chunk: int  # rows per chunk, walked from the last chunk to the first
+    buffers: int  # staging buffers: 2 where T spans several chunks
+
+
+class LaunchShape(NamedTuple):
+    blocks: int
+    threads: int  # per block
+    smem_bytes: int  # per block
+
+
+def launch_plan(T: int) -> LaunchPlan:
+    """The kernel's chunking of T rows: chunk k takes rows
+    ``[k * chunk, (k + 1) * chunk)``, the last chunk first; while one chunk
+    is computed the one before it is staged into the other buffer."""
+    if T < 1:
+        raise ValueError(f"no V-trace launch for T={T}")
+    chunk = min(T, MAX_CHUNK)
+    return LaunchPlan(chunk, 1 if T <= chunk else 2)
+
+
+def _library():
+    global _library_handle
+    if _library_handle is None:
+        lib = build.load_library(KERNEL_NAME)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 8 + [i32, i32, i32, f32, i32, f32, f32, ptr]
-        fn.restype = ctypes.c_int
-        _forward = fn
-    return _forward
+        lib.seed_rl_vtrace_forward.argtypes = (
+            [ptr] * 8 + [i32, i32, i32, f32, i32, f32, f32, i32, i32, ptr])
+        lib.seed_rl_vtrace_launch_shape.argtypes = (
+            [i32] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)
+        lib.seed_rl_launch_floor.argtypes = [ptr]
+        _library_handle = lib
+    return _library_handle
+
+
+def launch_shape(T: int, B: int) -> LaunchShape:
+    """The launch the built kernel makes for [T, B] inputs."""
+    out = [ctypes.c_int() for _ in LaunchShape._fields]
+    err = _library().seed_rl_vtrace_launch_shape(
+        T, B, *launch_plan(T), *map(ctypes.byref, out))
+    if err != 0:
+        raise ValueError(f"no V-trace launch for T={T}, B={B}")
+    return LaunchShape(*(x.value for x in out))
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launches the empty kernel of ``csrc/vtrace_kernel.cu`` (one block of
+    32 threads) on the current stream; counted nowhere."""
+    with torch.cuda.device(device):
+        err = _library().seed_rl_launch_floor(
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def from_importance_weights(
@@ -92,9 +145,9 @@ def from_importance_weights(
     vs = torch.empty_like(values)
     pg_advantages = torch.empty_like(values)
     device = values.device
-    fn = _kernel_fn()
+    plan = launch_plan(T)
     with torch.cuda.device(device):
-        err = fn(
+        err = _library().seed_rl_vtrace_forward(
             target.data_ptr(), behaviour.data_ptr(), discounts.data_ptr(),
             rewards.data_ptr(), values.data_ptr(), bootstrap.data_ptr(),
             vs.data_ptr(), pg_advantages.data_ptr(),
@@ -103,7 +156,7 @@ def from_importance_weights(
             float(clip_rho_threshold or 0.0),
             int(clip_pg_rho_threshold is not None),
             float(clip_pg_rho_threshold or 0.0),
-            float(lambda_),
+            float(lambda_), plan.chunk, plan.buffers,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

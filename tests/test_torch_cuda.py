@@ -19,6 +19,8 @@ from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
+# Shared memory one block may use on an H100.
+BLOCK_SMEM_BYTES = 227 * 1024
 
 
 @pytest.fixture
@@ -39,13 +41,23 @@ def _inputs(T, B, seed, device):
             for a in arrays]
 
 
-@pytest.mark.parametrize("T,B,lam,clip_rho,clip_pg", [
+# (T, B, lambda_, clip_rho_threshold, clip_pg_rho_threshold): the V-trace
+# path's shape, the tests/test_pallas_vtrace.py cases, B off the kernel's
+# 32-column tile, T = 1, and T across the kernel's 32-row chunks (with the
+# clips off, and at B = 37 and 1).
+VTRACE_CASES = [
     (32, 1024, 1.0, 1.0, 1.0),
     (12, 256, 0.95, 1.0, 1.0),
     (5, 128, 1.0, None, None),
     (7, 37, 0.9, 2.0, 0.5),
     (1, 1, 1.0, 1.0, 1.0),
-])
+    (200, 1000, 1.0, 1.0, 1.0),
+    (70, 37, 0.9, None, None),
+    (33, 1, 1.0, 1.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("T,B,lam,clip_rho,clip_pg", VTRACE_CASES)
 def test_vtrace_kernel_matches_plain(cuda, T, B, lam, clip_rho, clip_pg):
     args = _inputs(T, B, T + B, cuda)
     kwargs = dict(clip_rho_threshold=clip_rho,
@@ -55,6 +67,7 @@ def test_vtrace_kernel_matches_plain(cuda, T, B, lam, clip_rho, clip_pg):
     want = plain.from_importance_weights(*args, **kwargs)
     torch.cuda.synchronize()
     assert vtrace_kernel.launches == before + 1
+    assert vtrace_kernel.launch_shape(T, B).smem_bytes <= BLOCK_SMEM_BYTES
     torch.testing.assert_close(got.vs, want.vs, **TOL)
     torch.testing.assert_close(got.pg_advantages, want.pg_advantages, **TOL)
 
@@ -88,7 +101,7 @@ def test_vtrace_train_step_runs_on_the_card(cuda):
         assert t.device.type == "cuda"
 
 
-def _nstep_inputs(T, B, A, seed, device):
+def _nstep_inputs(T, B, A, seed, device, done_dtype=torch.bool):
     rng = np.random.RandomState(seed)
     return dict(
         q_values=torch.tensor(rng.normal(size=(T, B, A)), dtype=torch.float32,
@@ -101,13 +114,15 @@ def _nstep_inputs(T, B, A, seed, device):
                                    dtype=torch.int32, device=device),
         rewards=torch.tensor(rng.normal(size=(T, B)), dtype=torch.float32,
                              device=device),
-        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=torch.bool,
+        done=torch.tensor(rng.binomial(1, 0.1, (T, B)), dtype=done_dtype,
                           device=device),
     )
 
 
 # (T, B, A, n_steps, gamma, eta): the R2D2 loss and insert shapes, the
-# tests/test_pallas_nstep.py cases, n >= T with an odd B, and T = 2.
+# tests/test_pallas_nstep.py cases, n >= T with an odd B, T = 2, T - 1
+# across the kernel's 128-row chunks, B off its 16-column tile, and n - 1
+# past its 64-row staged halo.
 NSTEP_CASES = [
     (81, 64, 4, 5, 0.997, 0.9),
     (81, 610, 4, 5, 0.997, 0.9),
@@ -115,12 +130,19 @@ NSTEP_CASES = [
     (7, 64, 4, 3, 0.99, 0.7),
     (3, 37, 4, 5, 0.997, 0.9),
     (2, 1, 4, 1, 0.997, 0.9),
+    (300, 70, 4, 5, 0.997, 0.9),
+    (81, 37, 4, 5, 0.997, 0.9),
+    (40, 1, 3, 5, 0.99, 0.9),
+    (6, 64, 4, 8, 0.99, 0.9),
+    (300, 16, 4, 100, 0.997, 0.9),
 ]
 
 
+@pytest.mark.parametrize("done_dtype", [torch.bool, torch.float32])
 @pytest.mark.parametrize("T,B,A,n,gamma,eta", NSTEP_CASES)
-def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta):
-    kwargs = _nstep_inputs(T, B, A, T + B, cuda)
+def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta,
+                                    done_dtype):
+    kwargs = _nstep_inputs(T, B, A, T + B, cuda, done_dtype)
     q = kwargs.pop("q_values")
     q_kernel = q.clone().requires_grad_(True)
     q_plain = q.clone().requires_grad_(True)
@@ -131,11 +153,28 @@ def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta):
         q_plain, **kwargs, **kw)
     torch.cuda.synchronize()
     assert nstep_kernel.launches == before + 1
+    assert nstep_kernel.launch_shape(T, B, n).smem_bytes <= BLOCK_SMEM_BYTES
     torch.testing.assert_close(loss, want_loss, **TOL)
     torch.testing.assert_close(pri, want_pri, **TOL)
     (g_kernel,) = torch.autograd.grad(loss.sum(), q_kernel)
     (g_plain,) = torch.autograd.grad(want_loss.sum(), q_plain)
     torch.testing.assert_close(g_kernel, g_plain, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("launch_shape,want", [
+    # The V-trace path, unroll 32 x 1024 envs: 32 blocks of 32 columns.
+    (lambda: vtrace_kernel.launch_shape(32, 1024), (32, 256, 24_832)),
+    # The R2D2 loss (unroll 80 + 1, batch 64) and insert (610 training
+    # envs): blocks of 16 columns.
+    (lambda: nstep_kernel.launch_shape(81, 64, 5), (4, 256, 21_888)),
+    (lambda: nstep_kernel.launch_shape(81, 610, 5), (39, 256, 21_888)),
+    # The largest plans, as the source notes state them.
+    (lambda: vtrace_kernel.launch_shape(4096, 1), (1, 256, 45_312)),
+    (lambda: nstep_kernel.launch_shape(4096, 1, 100), (1, 256, 42_560)),
+])
+def test_launch_shape_is_what_the_source_notes_state(cuda, launch_shape,
+                                                     want):
+    assert tuple(launch_shape()) == want
 
 
 def test_nstep_kernel_refuses_what_it_does_not_take(cuda):
