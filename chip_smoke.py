@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero:
      started together (vtrace_kernel, nstep_kernel);
   3. hold each kernel against its plain PyTorch version on the card, and
      print its launch (blocks, threads, rows per chunk, shared memory per
-     block, at most 227 KB): V-trace at 8 shapes, the n-step targets and
+     block, at most 227 KB): V-trace at 9 shapes, the n-step targets and
      priorities at 11, each with done as bool and as f32 (loss,
      priorities within rtol = atol = 1e-5, and the gradient of the summed
-     loss in the Q values within rtol 1e-3 / atol 1e-4);
+     loss in the Q values within rtol 1e-3 / atol 1e-4); then the SAME max
+     pool of ImpalaDeep's three stacks (PyTorch's own max_pool2d, no kernel
+     of the port): on inputs quantised to a few levels, so that windows
+     tie, its values and gradient on the card must equal the CPU's exactly,
+     in NCHW and channels_last;
   4. time each kernel and its plain version with CUDA events at the main
      path's shapes, its device-only time with torch.profiler, beside the
      least time the card could take for the same work and the device time
@@ -22,8 +26,11 @@ Phases, in order; any failure exits non-zero:
      for comparison;
   5. train V-trace on the toy env through seed_rl_torch.train.main at the
      default MLPAndLSTM width (num_envs=1024, unroll_length=32), with the
-     V-trace launch count reset just before; check one launch per train
-     step, everything on the card, finite metrics; time the step;
+     launch counts reset just before; check one V-trace launch per train
+     step, everything on the card, finite metrics, and the kernel against
+     its plain version on the run's own unroll; time the step, its rollout
+     and update halves, its device busy time, launches and idle share
+     (torch.profiler), and print the peak device memory;
   6. train R2D2 on discrete_match through seed_rl_torch.train.main at the
      default VectorDuelingDQNNet width with the reference Atari R2D2 knobs
      (640 envs, 30 of them eval, unroll 80, burn-in 40, batch 64, n 5,
@@ -32,10 +39,23 @@ Phases, in order; any failure exits non-zero:
      before; check one launch per insert and per train batch, everything
      on the card, finite metrics, and the kernel against its plain version
      on the run's own sampled batch; time the step and its halves;
-  7. print the kernels line (JSON): for each kernel, at its main-path
-     shape, the wrapper's ms per call, the kernel's device-only ms, the
-     plain version's ms, the bound and the launch floor (the n-step
-     kernel: the loss shape, and the insert shape under "insert").
+  7. V-trace from pixels at full width, as phase 5: synthetic Atari frames
+     (84x84x1 uint8, 18 actions) with AtariPolicyNet (4 stacked frames,
+     LSTM 256) at 1024 envs x unroll 32, bench.py's vtrace_atari shape;
+  8. V-trace on Catch frames with --conv_net=impala_deep (ImpalaDeep, LSTM
+     256) at 256 envs x unroll 20, the README's Catch quick-start shape, as
+     phase 5; then a deterministic evaluation of the trained policy over at
+     least 256 episodes on the card, twice from one seed: the two results
+     must be equal;
+  9. print the V-trace launches of each path, and the kernels line (JSON):
+     for each kernel, at its main-path shape, the wrapper's ms per call,
+     the kernel's device-only ms, the plain version's ms, the bound and the
+     launch floor (the V-trace kernel: [32, 1024], and the Catch path's
+     [20, 256] under "catch"; the n-step kernel: the loss shape, and the
+     insert shape under "insert"); V-trace's launches are those of all
+     three V-trace paths.
+The TF32 settings of convolutions and matrix products are printed once;
+the script and the port leave PyTorch's defaults as they are.
 The last line of standard output is the device JSON:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -48,6 +68,8 @@ import math
 import subprocess
 import sys
 import time
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +89,7 @@ VTRACE_CASES = (
     (12, 256, 0.95, 1.0, 1.0),
     (5, 128, 1.0, None, None),
     (1, 37, 1.0, 1.0, 1.0),
+    (20, 256, 1.0, 1.0, 1.0),  # the Catch path: unroll 20, 256 envs
     # T across the kernel's 32-row chunks, also with the clips off and at
     # B off its 32-column tile.
     (200, 1000, 1.0, 1.0, 1.0),
@@ -78,7 +101,37 @@ VTRACE_CASES = (
 # pg advantage 4.
 VTRACE_OPS_PER_ELEMENT = 18
 
-TRAIN_ENVS, TRAIN_UNROLL, TRAIN_STEPS, TIMED_STEPS = 1024, 32, 4, 10
+
+
+class VTracePath(NamedTuple):
+    """One V-trace path driven through seed_rl_torch.train.main."""
+
+    flags: Tuple[str, ...]  # besides the agent, sizes, budget and logging
+    envs: int
+    unroll: int
+    steps: int  # train steps inside train.main
+    timed_steps: int  # steps per timed loop afterwards
+    net: str  # as printed
+
+
+VTRACE_PATHS = {
+    "toy": VTracePath(("--env=toy",), 1024, 32, 4, 10,
+                      "MLPAndLSTM (64,64)+(64,)"),
+    "synthetic_atari": VTracePath(
+        ("--env=synthetic_atari",), 1024, 32, 4, 5,
+        "AtariPolicyNet, 4 stacked 84x84 frames, LSTM 256, 18 actions"),
+    "catch_impala_deep": VTracePath(
+        ("--env=catch", "--conv_net=impala_deep", "--entropy_cost=0.01",
+         "--learning_rate=1e-3"), 256, 20, 4, 5,
+        "ImpalaDeep, 84x84x1 frames, LSTM 256, 3 actions"),
+}
+# The V-trace kernel's shapes [T, B] on those paths (phase 4 times both).
+VTRACE_MAIN_SHAPE, VTRACE_CATCH_SHAPE = (32, 1024), (20, 256)
+EVAL_EPISODES = 256
+
+# Phase 3: the pool's input [N, C, H, W] at each stack of ImpalaDeep on
+# 84x84 frames: SAME pads (0, 1), (0, 1) and (1, 1).
+POOL_SHAPES = ((64, 16, 84, 84), (64, 32, 42, 42), (64, 32, 21, 21))
 
 NSTEP_TOL = 1e-5
 NSTEP_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -362,66 +415,112 @@ def check_vtrace_kernel(device):
 
 
 def time_vtrace_kernel(device, floor_ms):
-    """Phase 4: kernel and plain times at the main-path shape."""
+    """Phase 4: kernel and plain times at the V-trace paths' shapes; returns
+    each shape's numbers by name."""
     from seed_rl_torch.ops import vtrace as plain
     from seed_rl_torch.ops.cuda import vtrace_kernel
 
-    T, B = TRAIN_UNROLL, TRAIN_ENVS
-    args = _vtrace_inputs(T, B, 0, device)
-    kernel_ms = _cuda_ms(
-        lambda: vtrace_kernel.from_importance_weights(*args), iters=200)
-    plain_ms = _cuda_ms(
-        lambda: plain.from_importance_weights(*args), iters=20)
-    bound_ms, bound_by = _vtrace_bound_ms(T, B)
-    print(f"vtrace T={T} B={B}: kernel {kernel_ms:.6f} ms per call "
-          f"(CUDA events over back-to-back calls), plain {plain_ms:.6f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
+    results = {}
+    for name, (T, B) in (("main", VTRACE_MAIN_SHAPE),
+                         ("catch", VTRACE_CATCH_SHAPE)):
+        args = _vtrace_inputs(T, B, 0, device)
+        kernel_ms = _cuda_ms(
+            lambda: vtrace_kernel.from_importance_weights(*args), iters=200)
+        plain_ms = _cuda_ms(
+            lambda: plain.from_importance_weights(*args), iters=20)
+        bound_ms, bound_by = _vtrace_bound_ms(T, B)
+        device_ms = _profiled_device_ms(
+            lambda: vtrace_kernel.from_importance_weights(*args), "vtrace")
+        first = (f"; first design {FIRST_DESIGN_DEVICE_MS['vtrace']:.6f} ms "
+                 f"in an earlier run, not measured here"
+                 if name == "main" else "")
+        print(f"vtrace T={T} B={B}: kernel {kernel_ms:.6f} ms per call "
+              f"(CUDA events over back-to-back calls), kernel alone on the "
+              f"device {_shown(device_ms)} (torch.profiler, 20 launches"
+              f"{first}), launch floor {_shown(floor_ms)}, bound "
+              f"{bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.6f} ms")
+        results[name] = _timing(T, B, kernel_ms, device_ms, plain_ms,
+                                bound_ms, bound_by, floor_ms)
+    return results
 
-    device_ms = _profiled_device_ms(
-        lambda: vtrace_kernel.from_importance_weights(*args), "vtrace")
-    print(f"vtrace T={T} B={B}: kernel alone on the device "
-          f"{_shown(device_ms)} (torch.profiler, 20 launches; first design "
-          f"{FIRST_DESIGN_DEVICE_MS['vtrace']:.6f} ms in an earlier run, not "
-          f"measured here), launch floor {_shown(floor_ms)}, bound "
-          f"{bound_ms:.6f} ms ({bound_by})")
-    return _timing(T, B, kernel_ms, device_ms, plain_ms, bound_ms, bound_by,
-                   floor_ms)
+
+def check_pool(device):
+    """Phase 3: ImpalaDeep's SAME max pool on the card against the CPU, on
+    inputs quantised to a few levels (ties in most windows): values and
+    gradients must be equal. The cotangents lie on a 1/8 grid, so sums of
+    them are exact in any order and only the routing of ties is compared."""
+    from seed_rl_torch.ops.pooling import max_pool_same
+
+    for seed, shape in enumerate(POOL_SHAPES):
+        rng = np.random.RandomState(seed)
+        x = torch.tensor(np.round(rng.normal(size=shape) * 2) / 2,
+                         dtype=torch.float32)
+        out_shape = shape[:2] + tuple(-(-n // 2) for n in shape[2:])
+        ct = torch.tensor(np.round(rng.normal(size=out_shape) * 8) / 8,
+                          dtype=torch.float32)
+        results = {}
+        for where, fmt in (("cpu", torch.contiguous_format),
+                           ("cuda", torch.contiguous_format),
+                           ("cuda channels_last", torch.channels_last)):
+            dev = torch.device("cpu") if where == "cpu" else device
+            xd = x.to(dev).to(memory_format=fmt).requires_grad_(True)
+            out = max_pool_same(xd)
+            (grad,) = torch.autograd.grad(out, xd, ct.to(dev))
+            results[where] = (out.detach().cpu(), grad.cpu())
+        want_out, want_grad = results.pop("cpu")
+        for where, (out, grad) in results.items():
+            torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+            torch.testing.assert_close(grad, want_grad, rtol=0, atol=0)
+        print(f"pool {list(shape)} -> {list(out_shape)}, inputs on "
+              f"{torch.unique(x).numel()} levels: values and gradient on the "
+              f"card ({', '.join(results)}) equal the CPU's exactly "
+              f"({int(torch.count_nonzero(want_grad))} inputs take gradient)")
 
 
-def run_training(card):
-    """Phase 5: the port's main path through its CLI entry point."""
+def _peak_memory_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def run_vtrace(card, name):
+    """Phases 5, 7 and 8: one V-trace path through the CLI entry point, with
+    the launch counts reset just before it; returns (the path's V-trace
+    launches, max |kernel - plain| on the run's own unroll, the learner)."""
     from seed_rl_torch import train
     from seed_rl_torch.agents import vtrace as vtrace_agent
     from seed_rl_torch.ops import vtrace as plain
     from seed_rl_torch.ops.cuda import vtrace_kernel
 
+    path = VTRACE_PATHS[name]
     argv = [
-        "--agent=vtrace", "--env=toy",
-        f"--num_envs={TRAIN_ENVS}", f"--unroll_length={TRAIN_UNROLL}",
-        f"--total_environment_frames={TRAIN_STEPS * TRAIN_ENVS * TRAIN_UNROLL}",
+        "--agent=vtrace", *path.flags,
+        f"--num_envs={path.envs}", f"--unroll_length={path.unroll}",
+        f"--total_environment_frames={path.steps * path.envs * path.unroll}",
         "--steps_per_call=1", "--log_every_steps=1",
     ]
+    torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
     learner, state, metrics = train.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"vtrace": vtrace_kernel.launches}
-    if state.step != TRAIN_STEPS:
-        raise RuntimeError(f"trained {state.step} steps, want {TRAIN_STEPS}")
-    if launches["vtrace"] != state.step:
+    launches = vtrace_kernel.launches
+    if state.step != path.steps:
+        raise RuntimeError(f"{name}: trained {state.step} steps, want "
+                           f"{path.steps}")
+    if launches != state.step:
         raise RuntimeError(
-            f"vtrace kernel launched {launches['vtrace']} times in "
+            f"{name}: vtrace kernel launched {launches} times in "
             f"{state.step} train steps")
     bad = {k: float(v) for k, v in metrics.items()
            if not math.isfinite(float(v))}
     if bad:
-        raise RuntimeError(f"non-finite metrics: {bad}")
+        raise RuntimeError(f"{name}: non-finite metrics: {bad}")
     tensors = list(learner.parameters()) + learner.state_tensors(state)
     off_card = [t.device for t in tensors if t.device.type != "cuda"]
     if off_card:
-        raise RuntimeError(f"{len(off_card)} tensors off the card")
-    print(f"train: {state.step} steps in {wall_s:.3f} s including setup; "
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
+    print(f"{name} train: {state.step} steps in {wall_s:.3f} s including "
+          f"setup; vtrace launches {launches}; "
           f"losses/total={float(metrics['losses/total']):.6f}; "
           f"{len(tensors)} tensors on cuda")
 
@@ -436,27 +535,30 @@ def run_training(card):
     want = plain.from_importance_weights(
         **inputs, lambda_=learner.config.lambda_)
     torch.cuda.synchronize()
+    err = 0.0
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=VTRACE_TOL, atol=VTRACE_TOL)
-    print("vtrace on the run's own unroll matches the plain version")
+        err = max(err, float((g - w).abs().max()))
+    print(f"{name}: vtrace on the run's own unroll "
+          f"{list(inputs['rewards'].shape)} matches the plain version, "
+          f"max|err|={err:.3e} (tol {VTRACE_TOL})")
 
     for _ in range(2):  # warm
         state, _ = learner.train_step(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(path.timed_steps):
         state, metrics = learner.train_step(state)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    step_s = (time.perf_counter() - t0) / path.timed_steps
     frames_per_s = learner.frames_per_step / step_s
-    print(f"train step on {card}: {step_s * 1e3:.3f} ms, "
-          f"{frames_per_s:.1f} env frames/s "
-          f"(num_envs={TRAIN_ENVS}, unroll_length={TRAIN_UNROLL}, "
-          f"MLPAndLSTM (64,64)+(64,))")
+    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
+          f"{frames_per_s:.1f} env frames/s (num_envs={path.envs}, "
+          f"unroll_length={path.unroll}, {path.net})")
 
     # Where the step's time goes: the rollout and the update alone.
     rollout_s = update_s = 0.0
-    for _ in range(TIMED_STEPS):
+    for _ in range(path.timed_steps):
         t0 = time.perf_counter()
         rollout, unroll = learner.engine.rollout(state.rollout)
         torch.cuda.synchronize()
@@ -465,11 +567,39 @@ def run_training(card):
         torch.cuda.synchronize()
         rollout_s += t1 - t0
         update_s += time.perf_counter() - t1
-    print(f"per step: rollout {rollout_s / TIMED_STEPS * 1e3:.3f} ms, "
-          f"update (loss, backward, clip, Adam, stats) "
-          f"{update_s / TIMED_STEPS * 1e3:.3f} ms")
-    profile_device_time(learner, state, step_s, "vtrace")
-    return launches
+    print(f"{name} per step: rollout {rollout_s / path.timed_steps * 1e3:.3f}"
+          f" ms, update (loss, backward, clip, Adam, stats) "
+          f"{update_s / path.timed_steps * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, name)
+    print(f"{name}: peak device memory {_peak_memory_gb():.3f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    return launches, err, learner
+
+
+def run_eval_twice(learner):
+    """Phase 8: the trained policy, deterministic, on fresh Catch envs on
+    the card, twice from one seed; the two results must be equal."""
+    from seed_rl_torch.envs import BatchedEnv, CatchEnv
+    from seed_rl_torch.evaluation import run_eval
+
+    path = VTRACE_PATHS["catch_impala_deep"]
+    device = learner.device
+    results = []
+    for _ in range(2):
+        env = BatchedEnv(CatchEnv(), path.envs, device=device)
+        t0 = time.perf_counter()
+        metrics = run_eval(env, learner.agent, EVAL_EPISODES,
+                           unroll_length=path.unroll, seed=0)
+        torch.cuda.synchronize()
+        print(f"eval: {metrics} in {time.perf_counter() - t0:.3f} s "
+              f"({path.envs} Catch envs on {device}, deterministic policy)")
+        results.append(metrics)
+    if results[0]["eval/num_episodes"] < EVAL_EPISODES:
+        raise RuntimeError(f"eval completed {results[0]['eval/num_episodes']}"
+                           f" episodes, want >= {EVAL_EPISODES}")
+    if results[0] != results[1]:
+        raise RuntimeError(f"eval is not repeatable: {results}")
+    print("eval: the two deterministic runs from one seed are equal")
 
 
 def _reset_launch_counts():
@@ -597,7 +727,7 @@ def profile_device_time(learner, state, step_s, what, steps=3):
     print(f"{what} profiler: device busy {busy_us / 1e3:.3f} ms per step over "
           f"{launches:.0f} kernel launches; idle share "
           f"{1 - busy_us / 1e6 / step_s:.3f} of the {step_s * 1e3:.3f} ms step")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
               f"{e.count / steps:6.0f}x  {e.key[:90]}")
@@ -619,6 +749,11 @@ def main():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    # The precision convolutions and matrix products run at: PyTorch's
+    # defaults, which neither this script nor the port changes.
+    print(f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
+          f" (convolutions), torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} (matrix products)")
 
     t0 = time.perf_counter()
     build.build(["vtrace_kernel", "nstep_kernel"])
@@ -628,16 +763,28 @@ def main():
 
     vtrace_err = check_vtrace_kernel(device)
     nstep_err = check_nstep_kernel(device)
+    check_pool(device)
     floor_ms = time_launch_floor(device)
     vtrace_times = time_vtrace_kernel(device, floor_ms)
     nstep_times = time_nstep_kernel(device, floor_ms)
-    vtrace_launches = run_training(smi)["vtrace"]
+    vtrace_launches = {}
+    vtrace_launches["toy"], err, _ = run_vtrace(smi, "toy")
+    vtrace_err = max(vtrace_err, err)
     nstep_launches, own_batch_err = run_r2d2(smi)
+    for name in ("synthetic_atari", "catch_impala_deep"):
+        vtrace_launches[name], err, learner = run_vtrace(smi, name)
+        vtrace_err = max(vtrace_err, err)
+    run_eval_twice(learner)
+    print(f"vtrace launches per path: {vtrace_launches} (one per train "
+          f"step); nstep launches: {nstep_launches}")
 
     kernels = []
     for name, replaces, launches, err, times, extra in (
+        # The [32, 1024] shape's numbers at the top level, the Catch
+        # path's [20, 256] under "catch".
         ("vtrace", "seed_rl_tpu/ops/pallas/vtrace_kernel.py:29",
-         vtrace_launches, vtrace_err, vtrace_times, {}),
+         sum(vtrace_launches.values()), vtrace_err, vtrace_times["main"],
+         {"catch": vtrace_times["catch"]}),
         # The loss shape's numbers at the top level, the insert shape's
         # under "insert".
         ("nstep", "seed_rl_tpu/ops/pallas/nstep_kernel.py:36",

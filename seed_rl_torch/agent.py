@@ -52,12 +52,17 @@ class PolicyAgent:
         env_output: EnvOutput,
         core_state,
         generator: Optional[torch.Generator] = None,
+        deterministic: bool = False,
     ) -> Tuple[AgentOutput, Any]:
-        """One inference step on [B] inputs; samples an action."""
+        """One inference step on [B] inputs; samples an action, or takes
+        the distribution's mode when ``deterministic``."""
         (policy_params, baseline), core_state = self.net(
             prev_action, env_output, core_state
         )
-        action = self.distribution.sample(policy_params, generator)
+        if deterministic:
+            action = self.distribution.mode(policy_params)
+        else:
+            action = self.distribution.sample(policy_params, generator)
         return AgentOutput(action, policy_params, baseline), core_state
 
     def unroll(

@@ -5,15 +5,23 @@ of numpy arrays (with or without the top-level ``"params"`` key), and
 returns the ``state_dict`` of the port's counterpart:
 - flax ``Dense`` ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
   ``bias`` as is;
+- flax ``Conv`` ``kernel [kh, kw, in, out]`` (HWIO) -> ``Conv2d.weight
+  [out, in, kh, kw]`` (OIHW); ``bias`` as is;
 - ``nn.OptimizedLSTMCell``'s per-gate ``ii/if/ig/io`` kernels and
   ``hi/hf/hg/ho`` kernels and biases -> ``LSTMCell.weight_ih``,
   ``weight_hh`` and ``bias``, gates stacked in the order i, f, g, o.
 
+The pixel nets flatten their conv output in flax's (H, W, C) order (see
+``models/atari.py``), so the Dense after the convs maps like any other.
+
 Any tree of the same structure converts the same way, so a gradient tree
 of the JAX package lands on the port's ``.grad`` layout too.
 
-Networks: ``MLPAndLSTM``, ``MLPPolicyNetwork`` and ``VectorDuelingDQNNet``
-(whose single ``lstm`` cell and bias-free ``advantage_head`` map as above).
+Networks: ``MLPAndLSTM``, ``MLPPolicyNetwork``, ``VectorDuelingDQNNet``
+(whose single ``lstm`` cell and bias-free ``advantage_head`` map as above),
+``AtariPolicyNet`` (flax's scanned ``core/lstm`` -> ``core.cells.0``) and
+``ImpalaDeep`` (``torso/ResidualStack_k/Conv_0`` -> ``torso.stacks.k.conv``,
+``res_i_conv{0,1}`` -> ``torso.stacks.k.blocks.i.{0,1}``).
 """
 
 from typing import Dict, Tuple
@@ -21,8 +29,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from seed_rl_torch.models.atari import AtariPolicyNet
 from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet
 from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
+from seed_rl_torch.models.resnets import ImpalaDeep
 
 _GATES = "ifgo"
 
@@ -38,6 +48,14 @@ def _unwrap(tree):
 def _dense(tree, prefix: str) -> Dict[str, torch.Tensor]:
     return {
         prefix + "weight": _tensor(np.asarray(tree["kernel"]).T),
+        prefix + "bias": _tensor(tree["bias"]),
+    }
+
+
+def _conv(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    return {
+        prefix + "weight": _tensor(
+            np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1))),
         prefix + "bias": _tensor(tree["bias"]),
     }
 
@@ -72,13 +90,17 @@ def _mlp_torso(tree, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _heads(p) -> Dict[str, torch.Tensor]:
+    return {**_dense(p["policy_logits"], "policy_logits."),
+            **_dense(p["baseline"], "baseline.")}
+
+
 def mlp_and_lstm_state_dict(params) -> Dict[str, torch.Tensor]:
     p = _unwrap(params)
     out = _mlp_torso(p["MLPTorso_0"], "torso.")
     for i, cell in enumerate(_indexed(p["LSTMStack_0"], "lstm_")):
         out.update(_lstm_cell(cell, f"lstm.cells.{i}."))
-    out.update(_dense(p["policy_logits"], "policy_logits."))
-    out.update(_dense(p["baseline"], "baseline."))
+    out.update(_heads(p))
     return out
 
 
@@ -89,8 +111,7 @@ def mlp_policy_network_state_dict(params) -> Dict[str, torch.Tensor]:
     else:
         out = _mlp_torso(p["policy_torso"], "policy_torso.")
         out.update(_mlp_torso(p["value_torso"], "value_torso."))
-    out.update(_dense(p["policy_logits"], "policy_logits."))
-    out.update(_dense(p["baseline"], "baseline."))
+    out.update(_heads(p))
     return out
 
 
@@ -106,6 +127,38 @@ def vector_dueling_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def atari_policy_net_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    torso = p["torso"]
+    out = {}
+    for i, layer in enumerate(_indexed(torso, "Conv_")):
+        out.update(_conv(layer, f"torso.convs.{i}."))
+    out.update(_dense(torso["Dense_0"], "torso.dense."))
+    if "core" in p:
+        out.update(_lstm_cell(p["core"]["lstm"], "core.cells.0."))
+    out.update(_heads(p))
+    return out
+
+
+def impala_deep_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    torso = p["torso"]
+    out = {}
+    for k, stack in enumerate(_indexed(torso, "ResidualStack_")):
+        prefix = f"torso.stacks.{k}."
+        out.update(_conv(stack["Conv_0"], prefix + "conv."))
+        i = 0
+        while f"res_{i}_conv0" in stack:
+            for j in range(2):
+                out.update(_conv(stack[f"res_{i}_conv{j}"],
+                                 f"{prefix}blocks.{i}.{j}."))
+            i += 1
+    out.update(_dense(torso["Dense_0"], "torso.dense."))
+    out.update(_lstm_cell(p["lstm"], "lstm.cells.0."))
+    out.update(_heads(p))
+    return out
+
+
 def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``net``'s type built from a flax tree."""
     if isinstance(net, MLPAndLSTM):
@@ -114,6 +167,10 @@ def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
         return mlp_policy_network_state_dict(params)
     if isinstance(net, VectorDuelingDQNNet):
         return vector_dueling_dqn_net_state_dict(params)
+    if isinstance(net, AtariPolicyNet):
+        return atari_policy_net_state_dict(params)
+    if isinstance(net, ImpalaDeep):
+        return impala_deep_state_dict(params)
     raise TypeError(f"no flax converter for {type(net).__name__}")
 
 

@@ -24,8 +24,9 @@ _TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """flax ``lecun_normal`` for a ``[out, in]`` weight: fan-in scaling."""
-    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNCATED_NORMAL_STD
+    """flax ``lecun_normal`` for a ``[out, in]`` or ``[out, in, kh, kw]``
+    weight: fan-in (``in * kh * kw``) scaling."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNCATED_NORMAL_STD
     with torch.no_grad():
         nn.init.trunc_normal_(
             weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
@@ -37,6 +38,17 @@ def dense(in_features: int, out_features: int,
           generator: torch.Generator) -> nn.Linear:
     """``nn.Linear`` initialised like flax ``nn.Dense``."""
     layer = nn.Linear(in_features, out_features)
+    lecun_normal_(layer.weight, generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+def conv(in_channels: int, out_channels: int, kernel: int, stride: int,
+         padding: int, generator: torch.Generator) -> nn.Conv2d:
+    """``nn.Conv2d`` initialised like flax ``nn.Conv`` (lecun-normal kernel,
+    zero bias). ``padding`` is symmetric: flax's ``"VALID"`` is 0, its
+    ``"SAME"`` for an odd kernel at stride 1 is ``kernel // 2``."""
+    layer = nn.Conv2d(in_channels, out_channels, kernel, stride, padding)
     lecun_normal_(layer.weight, generator)
     nn.init.zeros_(layer.bias)
     return layer

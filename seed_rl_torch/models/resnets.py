@@ -1,0 +1,162 @@
+"""IMPALA-style residual conv networks (the DmLab-class deep agent).
+
+Port of ``seed_rl_tpu/models/resnets.py``: ``ResidualStack`` (3x3 SAME conv,
+3x3/2 SAME max pool, residual blocks of ReLU-conv-ReLU-conv),
+``ImpalaResNetTorso`` (stacks (16,2)(32,2)(32,2), ReLU, Dense 256) and
+``ImpalaDeep`` (torso, then [torso, reward clipped to +-1, one-hot previous
+action] into an LSTM(256) that resets where ``done`` is set, then policy
+logits and baseline). ``GFootball`` waits for the host-env slice, which
+brings the bit-plane unpacking it reads.
+
+Frames stay NHWC uint8; the torso runs channels_last and flattens in the
+JAX package's (H, W, C) order (see ``models/atari.py``). A 3x3 SAME conv at
+stride 1 is a symmetric pad of 1; the pool's SAME padding can be
+asymmetric and lives in ``ops/pooling.py``.
+
+``remat=True`` recomputes the torso in the backward pass
+(``torch.utils.checkpoint``) with the same parameters, trading a second
+torso forward for not storing its activations.
+
+The JAX package's ``ImpalaDeep`` has no time-major path, so its agent scans
+the whole step over time. Here ``unroll`` folds the torso and the heads over
+T*B and steps only the LSTM cell, which computes what stepping ``forward``
+computes. Parameters are drawn on the CPU from a generator seeded with
+``seed`` and then moved, as in ``models/policy.py``.
+"""
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.utils.checkpoint
+
+from seed_rl_torch.device import resolve_device
+from seed_rl_torch.models.atari import flatten_hwc, nchw_frames
+from seed_rl_torch.models.core import (
+    LSTMStack,
+    conv,
+    dense,
+    lstm_initial_state,
+)
+from seed_rl_torch.models.policy import _generator
+from seed_rl_torch.ops.pooling import max_pool_same
+
+
+class ResidualStack(nn.Module):
+    """Conv + max-pool downscale followed by residual conv blocks."""
+
+    def __init__(self, in_channels: int, num_ch: int, num_blocks: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.conv = conv(in_channels, num_ch, 3, 1, 1, generator)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(conv(num_ch, num_ch, 3, 1, 1, generator)
+                          for _ in range(2))
+            for _ in range(num_blocks)
+        )
+
+    def forward(self, x):
+        x = max_pool_same(self.conv(x), (3, 3), (2, 2))
+        for conv0, conv1 in self.blocks:
+            x = x + conv1(torch.relu(conv0(torch.relu(x))))
+        return x
+
+
+class ImpalaResNetTorso(nn.Module):
+    """Residual stacks + ReLU + Dense. Input: uint8 ``[N, H, W, C]``."""
+
+    def __init__(
+        self,
+        observation_shape: Tuple[int, int, int],
+        generator: torch.Generator,
+        stack_config: Sequence[Tuple[int, int]] = ((16, 2), (32, 2), (32, 2)),
+        out_features: int = 256,
+    ):
+        super().__init__()
+        h, w, channels = observation_shape
+        stacks = []
+        for num_ch, num_blocks in stack_config:
+            stacks.append(
+                ResidualStack(channels, num_ch, num_blocks, generator))
+            channels = num_ch
+            h, w = -(-h // 2), -(-w // 2)  # a SAME pool at stride 2: ceil
+        self.stacks = nn.ModuleList(stacks)
+        self.dense = dense(channels * h * w, out_features, generator)
+
+    def forward(self, frames):
+        x = nchw_frames(frames)
+        for stack in self.stacks:
+            x = stack(x)
+        x = flatten_hwc(torch.relu(x))
+        return torch.relu(self.dense(x))
+
+
+class ImpalaDeep(nn.Module):
+    """Deep IMPALA agent: resnet torso + LSTM(256) + policy/value heads.
+
+    ``forward(prev_action, env_output, core_state)`` on ``[B]`` inputs and
+    ``unroll`` on time-major ``[T, B]`` inputs return
+    ``((policy_logits, baseline), core_state)``; the core state is a tuple
+    holding one LSTM ``(c, h)`` pair, as in the JAX package.
+    """
+
+    stateless = False
+
+    def __init__(
+        self,
+        num_actions: int,
+        observation_shape: Tuple[int, int, int],
+        lstm_size: int = 256,
+        remat: bool = False,
+        seed: int = 0,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        generator = _generator(seed)
+        self.num_actions = num_actions
+        self.lstm_size = lstm_size
+        self.remat = remat
+        self.torso = ImpalaResNetTorso(tuple(observation_shape), generator)
+        core_input = self.torso.dense.out_features + 1 + num_actions
+        self.lstm = LSTMStack(core_input, (lstm_size,), generator)
+        self.policy_logits = dense(lstm_size, num_actions, generator)
+        self.baseline = dense(lstm_size, 1, generator)
+        self.to(device)
+
+    def initial_state(self, batch_size: int):
+        return lstm_initial_state(
+            (self.lstm_size,), batch_size, self.baseline.weight.device)
+
+    def _core_inputs(self, prev_action, env_output, batch_dims: int):
+        frames = env_output.observation
+        lead = frames.shape[:batch_dims]
+        frames = frames.reshape((-1,) + frames.shape[batch_dims:])
+        if self.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                self.torso, frames, use_reentrant=False)
+        else:
+            x = self.torso(frames)
+        x = x.reshape(lead + x.shape[-1:])
+        reward = torch.clamp(env_output.reward.to(x.dtype), -1.0, 1.0)
+        one_hot = nn.functional.one_hot(
+            prev_action.long(), self.num_actions).to(x.dtype)
+        return torch.cat([x, reward.unsqueeze(-1), one_hot], dim=-1)
+
+    def _heads(self, x):
+        return self.policy_logits(x), self.baseline(x).squeeze(-1)
+
+    def forward(self, prev_action, env_output, core_state):
+        x = self._core_inputs(prev_action, env_output, batch_dims=1)
+        x, core_state = self.lstm(x, core_state, env_output.done)
+        return self._heads(x), core_state
+
+    def unroll(self, prev_actions, env_outputs, core_state):
+        """[T, B] training path: folded torso/heads, the LSTM stepped."""
+        x = self._core_inputs(prev_actions, env_outputs, batch_dims=2)
+        outputs = []
+        for step in range(x.shape[0]):
+            out, core_state = self.lstm(
+                x[step], core_state, env_outputs.done[step])
+            outputs.append(out)
+        return self._heads(torch.stack(outputs)), core_state

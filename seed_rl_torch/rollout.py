@@ -65,11 +65,13 @@ class RolloutEngine:
     Args:
       batched_env: a ``BatchedEnv`` (auto-resetting, on one device).
       agent: object with ``policy_step(prev_action, env_output, core_state,
-        generator)`` and ``initial_state(batch)``.
+        generator)`` (and ``deterministic=True`` when ``deterministic``) and
+        ``initial_state(batch)``.
       unroll_length: T — new timesteps per unroll.
       num_overlapping_steps: o — timesteps shared with the previous unroll in
         addition to the +1 boundary step (R2D2 burn-in).
       seed: seeds the action-sampling generator.
+      deterministic: act by the policy's mode instead of sampling (eval).
     """
 
     def __init__(
@@ -79,6 +81,7 @@ class RolloutEngine:
         unroll_length: int,
         num_overlapping_steps: int = 0,
         seed: int = 0,
+        deterministic: bool = False,
     ):
         if unroll_length <= num_overlapping_steps:
             raise ValueError(
@@ -89,6 +92,7 @@ class RolloutEngine:
         self.agent = agent
         self.unroll_length = unroll_length
         self.overlap = num_overlapping_steps
+        self.deterministic = deterministic
         self.generator = torch.Generator(device=batched_env.device)
         self.generator.manual_seed(seed)
         self._zero_action = zero_action_for_space(
@@ -100,8 +104,11 @@ class RolloutEngine:
         return zero.expand((batch,) + tuple(zero.shape)).contiguous()
 
     def _step(self, env_state, env_output, agent_state, prev_action):
+        # Only eval passes ``deterministic``: agents that have no eval mode
+        # yet (R2D2) need not take it.
+        extra = {"deterministic": True} if self.deterministic else {}
         agent_output, agent_state = self.agent.policy_step(
-            prev_action, env_output, agent_state, self.generator
+            prev_action, env_output, agent_state, self.generator, **extra
         )
         timestep = Timestep(
             prev_action=prev_action,

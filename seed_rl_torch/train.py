@@ -1,14 +1,20 @@
 """Training entry point: ``python -m seed_rl_torch.train --agent=... ...``.
 
-Port of two paths of ``seed_rl_tpu/train.py``, with the same flag names and
-defaults, plus ``--device`` (default: the CUDA device; ``--device=cpu``
+Port of these paths of ``seed_rl_tpu/train.py``, with the same flag names
+and defaults, plus ``--device`` (default: the CUDA device; ``--device=cpu``
 runs on the CPU):
 - ``--agent=vtrace --env={toy,toy_memory}`` (``MLPAndLSTM``);
+- ``--agent=vtrace --env={catch,synthetic_atari}`` from 84x84 uint8 frames:
+  ``AtariPolicyNet`` (4 stacked frames, LSTM 256) by default, or
+  ``ImpalaDeep`` with ``--conv_net=impala_deep`` (``--remat_torso``
+  recomputes its torso in the backward pass);
 - ``--agent=r2d2 --env=discrete_match`` (``VectorDuelingDQNNet``, the fused
   on-device learner with prioritized replay).
 Other agent/env pairs, run modes, checkpoints, observation normalization,
 host-env replay ratios and more than one replica are not ported yet and
-raise ``NotImplementedError`` rather than being ignored.
+raise ``NotImplementedError`` rather than being ignored. ``--conv_net=atari``
+is accepted and ignored by the JAX CLI; here it raises ``ValueError``, as do
+``--conv_net=impala_deep`` and ``--remat_torso`` where no conv net runs.
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -16,6 +22,9 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=r2d2 --env=discrete_match \
       --num_envs=32 --unroll_length=10 --burn_in=4 \
       --replay_buffer_min_size=100 --total_environment_frames=50000
+  python -m seed_rl_torch.train --agent=vtrace --env=catch \
+      --num_envs=256 --unroll_length=20 --entropy_cost=0.01 \
+      --learning_rate=1e-3 --total_environment_frames=3000000
 """
 
 import argparse
@@ -36,7 +45,12 @@ ENVS = [
 ]
 RUN_MODES = ["train", "eval", "profile", "actor", "learner"]
 # agent -> the envs it is ported for.
-PORTED = {"vtrace": ("toy", "toy_memory"), "r2d2": ("discrete_match",)}
+PORTED = {
+    "vtrace": ("toy", "toy_memory", "catch", "synthetic_atari"),
+    "r2d2": ("discrete_match",),
+}
+# Envs whose observations are frames, for the conv nets.
+PIXEL_ENVS = ("catch", "synthetic_atari")
 
 
 def parse_args(argv=None):
@@ -67,6 +81,16 @@ def parse_args(argv=None):
     p.add_argument("--num_replicas", type=int, default=0,
                    help="0 = all local devices; more than one is not "
                         "ported yet")
+    p.add_argument("--conv_net", default="auto",
+                   choices=["auto", "atari", "impala_deep"],
+                   help="conv torso for pixel envs under --agent=vtrace: "
+                        "auto = AtariPolicyNet (Nature-DQN torso, 4 stacked "
+                        "frames, LSTM 256); impala_deep = the DmLab-class "
+                        "deep resnet (ImpalaDeep); atari is refused (it "
+                        "selects nothing in the JAX CLI either)")
+    p.add_argument("--remat_torso", action="store_true",
+                   help="recompute the ImpalaDeep torso in the backward "
+                        "pass instead of storing its activations")
     p.add_argument("--debug_asserts", action="store_true",
                    help="enable the replay's contract checks (priority "
                         "validity, ring bounds); each check waits for the "
@@ -114,6 +138,16 @@ def _refuse_unported(args):
         refuse("--normalize_observations")
     if args.replay_ratio is not None:
         refuse("--replay_ratio (host-env replay)")
+    if args.conv_net == "atari":
+        raise ValueError(
+            "--conv_net=atari selects nothing in the JAX CLI; AtariPolicyNet "
+            "is --conv_net=auto on a pixel env")
+    conv = args.agent == "vtrace" and args.env in PIXEL_ENVS
+    if args.conv_net == "impala_deep" and not conv:
+        raise ValueError("--conv_net=impala_deep needs --agent=vtrace and a "
+                         f"pixel env ({', '.join(PIXEL_ENVS)})")
+    if args.remat_torso and args.conv_net != "impala_deep":
+        raise ValueError("--remat_torso needs --conv_net=impala_deep")
 
 
 def _refuse_replicas(args, device):
@@ -133,6 +167,8 @@ def make_env(args, device):
         "toy": envs.ToyEnv,
         "toy_memory": envs.ToyMemoryEnv,
         "discrete_match": envs.DiscreteMatchEnv,
+        "catch": envs.CatchEnv,
+        "synthetic_atari": envs.SyntheticAtariEnv,
     }[args.env]()
     return envs.BatchedEnv(env, args.num_envs, device=device, seed=0)
 
@@ -187,16 +223,28 @@ def _vtrace_learner(args, env, optimizer, device):
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agent import PolicyAgent
     from seed_rl_torch.agents import vtrace as vtrace_agent
-    from seed_rl_torch.models import MLPAndLSTM
+    from seed_rl_torch.models import AtariPolicyNet, ImpalaDeep, MLPAndLSTM
     from seed_rl_torch.rollout import RolloutEngine
 
     dist = pd.get_parametric_distribution_for_action_space(env.action_space)
-    net = MLPAndLSTM(
-        parametric_distribution_param_size=dist.param_size,
-        input_size=math.prod(env.observation_spec().shape),
-        seed=0,
-        device=device,
-    )
+    obs_shape = tuple(env.observation_spec().shape)
+    if args.conv_net == "impala_deep":
+        net = ImpalaDeep(num_actions=env.action_space.n,
+                         observation_shape=obs_shape,
+                         remat=args.remat_torso, seed=0, device=device)
+    elif args.env in PIXEL_ENVS:
+        net = AtariPolicyNet(
+            parametric_distribution_param_size=dist.param_size,
+            frame_shape=obs_shape[:2], stack_size=4, lstm_size=256, seed=0,
+            device=device,
+        )
+    else:
+        net = MLPAndLSTM(
+            parametric_distribution_param_size=dist.param_size,
+            input_size=math.prod(obs_shape),
+            seed=0,
+            device=device,
+        )
     agent = PolicyAgent(net, dist)
     config = vtrace_agent.VTraceConfig(
         discounting=args.discounting,

@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops import vtrace as plain
@@ -213,4 +214,108 @@ def test_r2d2_train_step_runs_on_the_card(cuda):
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
     for t in tensors:
+        assert t.device.type == "cuda"
+
+
+# The pool's input [N, C, H, W] at each stack of ImpalaDeep on 84x84
+# frames: SAME pads (0, 1), (0, 1) and (1, 1).
+POOL_SHAPES = [(8, 16, 84, 84), (8, 32, 42, 42), (8, 32, 21, 21)]
+
+
+@pytest.mark.parametrize("memory_format",
+                         [torch.contiguous_format, torch.channels_last])
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_pool_routes_ties_on_the_card_as_on_the_cpu(cuda, shape,
+                                                    memory_format):
+    from seed_rl_torch.ops.pooling import max_pool_same
+
+    rng = np.random.RandomState(sum(shape))
+    # A few levels, so most windows tie; cotangents on a 1/8 grid sum
+    # exactly in any order, so only the routing is compared.
+    x = torch.tensor(np.round(rng.normal(size=shape) * 2) / 2,
+                     dtype=torch.float32)
+    out_shape = shape[:2] + tuple(-(-n // 2) for n in shape[2:])
+    ct = torch.tensor(np.round(rng.normal(size=out_shape) * 8) / 8,
+                      dtype=torch.float32)
+    results = []
+    for device, fmt in (("cpu", torch.contiguous_format), (cuda, memory_format)):
+        xd = x.to(device).to(memory_format=fmt).requires_grad_(True)
+        out = max_pool_same(xd)
+        (grad,) = torch.autograd.grad(out, xd, ct.to(device))
+        results.append((out.detach().cpu(), grad.cpu()))
+    (want_out, want_grad), (out, grad) = results
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=0)
+
+
+def _pixel_net(kind, device):
+    from seed_rl_torch.models import AtariPolicyNet, ImpalaDeep
+
+    if kind == "atari":  # the CLI's net at full width
+        return AtariPolicyNet(18, stack_size=4, lstm_size=256, seed=3,
+                              device=device)
+    return ImpalaDeep(18, (84, 84, 1), seed=3, device=device)
+
+
+@pytest.mark.parametrize("kind", ["atari", "impala_deep"])
+def test_pixel_nets_on_the_card_match_the_cpu(cuda, kind):
+    """Full-width forward on the card vs the CPU, same weights (one seed).
+
+    With TF32 off the card computes in f32 and differs only in summation
+    order: rtol 1e-4 / atol 1e-5. With PyTorch's default, cuDNN runs the
+    convolutions in TF32 (10-bit mantissa, ~5e-4 relative per product)
+    through three conv layers (ImpalaDeep: fifteen): rtol = atol = 1e-2.
+    """
+    from seed_rl_torch.types import EnvOutput
+
+    B, T = 8, 3
+    rng = np.random.RandomState(4)
+    eo = EnvOutput(
+        reward=torch.tensor(rng.normal(size=(T, B)), dtype=torch.float32),
+        done=torch.tensor(rng.uniform(size=(T, B)) < 0.3),
+        observation=torch.tensor(rng.randint(0, 256, (T, B, 84, 84, 1)),
+                                 dtype=torch.uint8),
+        abandoned=torch.zeros(T, B, dtype=torch.bool),
+        episode_step=torch.zeros(T, B, dtype=torch.int32),
+    )
+    prev = torch.tensor(rng.randint(0, 18, (T, B)), dtype=torch.int32)
+    cpu_net, card_net = _pixel_net(kind, "cpu"), _pixel_net(kind, cuda)
+    with torch.no_grad():
+        want, want_state = cpu_net.unroll(prev, eo, cpu_net.initial_state(B))
+        on_card = [x.to(cuda) for x in (prev, *eo)]
+        card_eo = EnvOutput(*on_card[1:])
+        tf32 = torch.backends.cudnn.allow_tf32
+        for allow, tol in ((False, dict(rtol=1e-4, atol=1e-5)),
+                           (tf32, dict(rtol=1e-2, atol=1e-2))):
+            torch.backends.cudnn.allow_tf32 = allow
+            try:
+                got, state = card_net.unroll(on_card[0], card_eo,
+                                             card_net.initial_state(B))
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, **tol)
+            for g, w in zip(pytree.tree_leaves(state),
+                            pytree.tree_leaves(want_state)):
+                torch.testing.assert_close(g.cpu(), w, **tol)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--env=catch"],
+    ["--env=synthetic_atari"],
+    ["--env=catch", "--conv_net=impala_deep", "--remat_torso"],
+    ["--env=synthetic_atari", "--conv_net=impala_deep", "--remat_torso"],
+])
+def test_pixel_vtrace_launches_the_kernel_once_per_step(cuda, argv):
+    from seed_rl_torch import train
+
+    vtrace_kernel.launches = 0
+    learner, state, metrics = train.main([
+        "--agent=vtrace", *argv, "--num_envs=64", "--unroll_length=8",
+        "--total_environment_frames=1024", "--steps_per_call=1",
+        "--log_every_steps=1",
+    ])
+    assert state.step == 2 and vtrace_kernel.launches == 2
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    for t in learner.parameters() + learner.state_tensors(state):
         assert t.device.type == "cuda"
