@@ -38,7 +38,8 @@ Phases, in order; any failure exits non-zero:
      rollouts, then 4 train steps, with the n-step launch count reset just
      before; check one launch per insert and per train batch, everything
      on the card, finite metrics, and the kernel against its plain version
-     on the run's own sampled batch; time the step and its halves;
+     on the run's own sampled batch (loss and priorities, and the gradient
+     of the summed loss in the Q values); time the step and its halves;
   7. V-trace from pixels at full width, as phase 5: synthetic Atari frames
      (84x84x1 uint8, 18 actions) with AtariPolicyNet (4 stacked frames,
      LSTM 256) at 1024 envs x unroll 32, bench.py's vtrace_atari shape;
@@ -47,13 +48,29 @@ Phases, in order; any failure exits non-zero:
      phase 5; then a deterministic evaluation of the trained policy over at
      least 256 episodes on the card, twice from one seed: the two results
      must be equal;
-  9. print the V-trace launches of each path, and the kernels line (JSON):
-     for each kernel, at its main-path shape, the wrapper's ms per call,
-     the kernel's device-only ms, the plain version's ms, the bound and the
-     launch floor (the V-trace kernel: [32, 1024], and the Catch path's
-     [20, 256] under "catch"; the n-step kernel: the loss shape, and the
-     insert shape under "insert"); V-trace's launches are those of all
-     three V-trace paths.
+  9. R2D2 from pixels, as phase 6 with the same knobs and a 10k-unroll
+     replay of frames: synthetic Atari frames (84x84x1 uint8, 18 actions)
+     with DuelingLSTMDQNNet (4 stacked frames, LSTM 512), f32; the replay's
+     size is printed;
+ 10. PPO on the toy env with the reference HalfCheetah PPO knobs: 128 envs
+     x unroll 16, split, 10 epochs x 32 minibatches, lr 3e-4, clip 0.5, the
+     CLI's 2x64 tanh ContinuousControlNet behind observation normalization;
+     checks 320 optimizer updates and 17 x 128 observations folded into the
+     statistics per train step, everything on the card, finite metrics;
+     times the step, its rollout and update halves, the device busy time,
+     launches and idle share, and prints the peak memory;
+ 11. PPO from pixels, as phase 10: synthetic Atari frames with
+     AtariPolicyNet (LSTM 256), 512 envs x unroll 32, shuffle, 2 epochs x
+     8 minibatches, entropy cost 0.01 (bench.py's ppo_atari shape);
+ 12. print the V-trace and n-step launches of each path, and the kernels
+     line (JSON): for each kernel, at its main-path shape, the wrapper's ms
+     per call, the kernel's device-only ms, the plain version's ms, the
+     bound and the launch floor (the V-trace kernel: [32, 1024], and the
+     Catch path's [20, 256] under "catch"; the n-step kernel: the loss
+     shape, and the insert shape under "insert"); V-trace's launches are
+     those of all three V-trace paths, the n-step kernel's those of both
+     R2D2 paths. The PPO paths launch neither kernel: their advantage
+     estimators are plain PyTorch, as in the JAX package.
 The TF32 settings of convolutions and matrix products are printed once;
 the script and the port leave PyTorch's defaults as they are.
 The last line of standard output is the device JSON:
@@ -161,18 +178,58 @@ NSTEP_OPS_PER_ELEMENT = 11 + 3 * 5 + 7 + 4
 
 R2D2_ENVS, R2D2_EVAL_ENVS, R2D2_UNROLL, R2D2_BURN_IN = 640, 30, 80, 40
 R2D2_WARMUPS, R2D2_STEPS, R2D2_BATCHES_PER_STEP = 2, 4, 1
-R2D2_ARGV = [
-    "--agent=r2d2", "--env=discrete_match",
-    f"--num_envs={R2D2_ENVS}", f"--num_eval_envs={R2D2_EVAL_ENVS}",
-    f"--unroll_length={R2D2_UNROLL}", f"--burn_in={R2D2_BURN_IN}",
-    "--batch_size=64", "--n_steps=5", "--discounting=0.997",
-    "--learning_rate=1e-4", "--clip_norm=80",
-    "--replay_buffer_size=10000", "--replay_buffer_min_size=1220",
-    f"--total_environment_frames={R2D2_STEPS * R2D2_ENVS * R2D2_UNROLL}",
-    f"--train_batches_per_step={R2D2_BATCHES_PER_STEP}",
-    "--steps_per_call=1", "--log_every_steps=1",
-]
+R2D2_REPLAY = 10_000  # unrolls
+# The R2D2 paths (phases 6 and 9): env -> the net, as printed.
+R2D2_PATHS = {
+    "discrete_match": "VectorDuelingDQNNet (64,)+64+64",
+    "synthetic_atari": "DuelingLSTMDQNNet, 4 stacked 84x84 frames, LSTM "
+                       "512, 18 actions",
+}
 R2D2_TIMED_STEPS = 5
+
+
+def _r2d2_argv(env):
+    return [
+        "--agent=r2d2", f"--env={env}",
+        f"--num_envs={R2D2_ENVS}", f"--num_eval_envs={R2D2_EVAL_ENVS}",
+        f"--unroll_length={R2D2_UNROLL}", f"--burn_in={R2D2_BURN_IN}",
+        "--batch_size=64", "--n_steps=5", "--discounting=0.997",
+        "--learning_rate=1e-4", "--clip_norm=80",
+        f"--replay_buffer_size={R2D2_REPLAY}",
+        "--replay_buffer_min_size="
+        f"{R2D2_WARMUPS * (R2D2_ENVS - R2D2_EVAL_ENVS)}",
+        f"--total_environment_frames={R2D2_STEPS * R2D2_ENVS * R2D2_UNROLL}",
+        f"--train_batches_per_step={R2D2_BATCHES_PER_STEP}",
+        "--steps_per_call=1", "--log_every_steps=1",
+    ]
+
+
+class PPOPath(NamedTuple):
+    """One PPO path driven through seed_rl_torch.train.main."""
+
+    flags: Tuple[str, ...]  # besides the agent, sizes, budget and logging
+    envs: int
+    unroll: int
+    epochs: int
+    minibatches: int
+    net: str  # as printed
+
+
+PPO_PATHS = {
+    # scripts/reference_configs/train_mujoco_ppo.sh:17-21 on the toy env.
+    "ppo_toy": PPOPath(
+        ("--env=toy", "--batch_mode=split", "--learning_rate=3e-4",
+         "--clip_norm=0.5"), 128, 16, 10, 32,
+        "ContinuousControlNet 2x64 tanh, free std, input normalization"),
+    # bench.py's ppo_atari shape.
+    "ppo_synthetic_atari": PPOPath(
+        ("--env=synthetic_atari", "--batch_mode=shuffle",
+         "--ppo_entropy_cost=0.01", "--learning_rate=3e-4",
+         "--clip_norm=0.5"), 512, 32, 2, 8,
+        "AtariPolicyNet, 4 stacked 84x84 frames, LSTM 256, 18 actions"),
+}
+# Train steps inside train.main, and timed afterwards, on both PPO paths.
+PPO_STEPS, PPO_TIMED_STEPS = 2, 2
 
 # Device time (torch.profiler, 20 launches) of each kernel's first design,
 # one thread per column walking every row in series, as this script
@@ -499,10 +556,10 @@ def run_vtrace(card, name):
     ]
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    t0 = time.perf_counter()
+    start = time.perf_counter()
     learner, state, metrics = train.main(argv)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_s = time.perf_counter() - start
     launches = vtrace_kernel.launches
     if state.step != path.steps:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
@@ -543,36 +600,15 @@ def run_vtrace(card, name):
           f"{list(inputs['rewards'].shape)} matches the plain version, "
           f"max|err|={err:.3e} (tol {VTRACE_TOL})")
 
-    for _ in range(2):  # warm
-        state, _ = learner.train_step(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(path.timed_steps):
-        state, metrics = learner.train_step(state)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / path.timed_steps
-    frames_per_s = learner.frames_per_step / step_s
+    state, step_s, (rollout_s, update_s) = time_train_steps(
+        state, *_rollout_and_update(learner), path.timed_steps)
     print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
-          f"{frames_per_s:.1f} env frames/s (num_envs={path.envs}, "
-          f"unroll_length={path.unroll}, {path.net})")
-
-    # Where the step's time goes: the rollout and the update alone.
-    rollout_s = update_s = 0.0
-    for _ in range(path.timed_steps):
-        t0 = time.perf_counter()
-        rollout, unroll = learner.engine.rollout(state.rollout)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, _ = learner.update(state._replace(rollout=rollout), unroll)
-        torch.cuda.synchronize()
-        rollout_s += t1 - t0
-        update_s += time.perf_counter() - t1
-    print(f"{name} per step: rollout {rollout_s / path.timed_steps * 1e3:.3f}"
-          f" ms, update (loss, backward, clip, Adam, stats) "
-          f"{update_s / path.timed_steps * 1e3:.3f} ms")
+          f"{learner.frames_per_step / step_s:.1f} env frames/s "
+          f"(num_envs={path.envs}, unroll_length={path.unroll}, {path.net})")
+    print(f"{name} per step: rollout {rollout_s * 1e3:.3f} ms, update (loss, "
+          f"backward, clip, Adam, stats) {update_s * 1e3:.3f} ms")
     profile_device_time(learner, state, step_s, name)
-    print(f"{name}: peak device memory {_peak_memory_gb():.3f} GB "
-          f"(torch.cuda.max_memory_allocated)")
+    _print_path_end(name, start)
     return launches, err, learner
 
 
@@ -609,92 +645,196 @@ def _reset_launch_counts():
     vtrace_kernel.launches = nstep_kernel.launches = 0
 
 
-def run_r2d2(card):
-    """Phase 6: R2D2 through the CLI entry point, at the reference knobs."""
+def run_r2d2(card, env):
+    """Phases 6 and 9: R2D2 through the CLI entry point, at the reference
+    knobs; returns (the path's n-step launches, max |kernel - plain| on
+    the run's own batch)."""
     from seed_rl_torch import train
     from seed_rl_torch.agents import r2d2
     from seed_rl_torch.ops.cuda import nstep_kernel
 
+    name = f"r2d2 {env}"
+    torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    t0 = time.perf_counter()
-    learner, state, metrics = train.main(R2D2_ARGV)
+    start = time.perf_counter()
+    learner, state, metrics = train.main(_r2d2_argv(env))
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_s = time.perf_counter() - start
     launches = nstep_kernel.launches
     want = R2D2_WARMUPS + state.step * (1 + R2D2_BATCHES_PER_STEP)
     if state.step != R2D2_STEPS:
-        raise RuntimeError(f"trained {state.step} steps, want {R2D2_STEPS}")
+        raise RuntimeError(f"{name}: trained {state.step} steps, want "
+                           f"{R2D2_STEPS}")
     if launches != want:
         raise RuntimeError(
-            f"nstep kernel launched {launches} times, want {want} "
+            f"{name}: nstep kernel launched {launches} times, want {want} "
             f"({R2D2_WARMUPS} warmup inserts + {state.step} x (1 insert + "
             f"{R2D2_BATCHES_PER_STEP} batches))")
     bad = {k: float(v) for k, v in metrics.items()
            if not math.isfinite(float(v))}
     if bad:
-        raise RuntimeError(f"non-finite metrics: {bad}")
+        raise RuntimeError(f"{name}: non-finite metrics: {bad}")
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
     off_card = [t.device for t in tensors if t.device.type != "cuda"]
     if off_card:
-        raise RuntimeError(f"{len(off_card)} tensors off the card")
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
     replay_mb = sum(t.numel() * t.element_size() for t in
                     pytree.tree_leaves(state.replay.buffer)) / 1e6
-    print(f"r2d2 train: {R2D2_WARMUPS} warmup rollouts + {state.step} steps "
+    print(f"{name} train: {R2D2_WARMUPS} warmup rollouts + {state.step} steps "
           f"in {wall_s:.3f} s including setup; nstep launches {launches}; "
           f"losses/td={float(metrics['losses/td']):.6f}; {len(tensors)} "
           f"tensors on cuda; replay {state.replay.num_inserted} unrolls, "
           f"{replay_mb:.1f} MB")
 
     # The kernel on a batch sampled from this run's replay, against the
-    # plain version; loss and priorities must be finite.
+    # plain version, with the gradient of the summed loss in the online Q
+    # values; loss and priorities must be finite.
     config = learner.config
     _, _, items = learner.replay.sample(
         state.replay, learner.generator, config.batch_size,
         config.priority_exponent)
     with torch.no_grad():
-        args = r2d2.loss_inputs(
+        q, *args = r2d2.loss_inputs(
             learner.net, learner.target_net, items.agent_state,
             *r2d2._time_major((items.prev_actions, items.env_outputs,
                                items.agent_outputs)),
             burn_in=config.burn_in)
+    q_kernel, q_plain = (q.clone().requires_grad_(True) for _ in range(2))
     kw = dict(gamma=config.discounting, n_steps=config.n_steps,
               rescaling_eps=config.value_function_rescaling_epsilon)
-    err, (loss, pri), _ = _nstep_compare(args, args, kw,
-                                         "on the run's own sampled batch")
+    err, (loss, pri), (want_loss, _) = _nstep_compare(
+        [q_kernel, *args], [q_plain, *args], kw,
+        f"{name} on the run's own sampled batch {list(q.shape[:2])}")
     if not (torch.isfinite(loss).all() and torch.isfinite(pri).all()):
-        raise RuntimeError("non-finite loss or priorities")
+        raise RuntimeError(f"{name}: non-finite loss or priorities")
+    (g_kernel,) = torch.autograd.grad(loss.sum(), q_kernel)
+    (g_plain,) = torch.autograd.grad(want_loss.sum(), q_plain)
+    torch.testing.assert_close(g_kernel, g_plain, **NSTEP_GRAD_TOL)
+    print(f"nstep {name} on the run's own sampled batch: dloss/dq max|err|="
+          f"{float((g_kernel - g_plain).abs().max()):.3e} "
+          f"(tol {NSTEP_GRAD_TOL})")
 
-    for _ in range(2):  # warm
-        state, _ = learner.train_step(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(R2D2_TIMED_STEPS):
-        state, metrics = learner.train_step(state)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / R2D2_TIMED_STEPS
-    print(f"r2d2 train step on {card}: {step_s * 1e3:.3f} ms, "
+    # A step is one rollout + insert and one train batch.
+    state, step_s, (insert_s, batch_s) = time_train_steps(
+        state, learner.warmup_step,
+        lambda s: learner.train_on_batch(s)[0], R2D2_TIMED_STEPS)
+    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
           f"{learner.frames_per_step / step_s:.1f} env frames/s "
           f"(num_envs={R2D2_ENVS}, unroll_length={R2D2_UNROLL}, burn_in="
-          f"{R2D2_BURN_IN}, batch 64, VectorDuelingDQNNet (64,)+64+64)")
+          f"{R2D2_BURN_IN}, batch 64, {R2D2_PATHS[env]})")
+    print(f"{name} per step on {card}: rollout + insert "
+          f"{insert_s * 1e3:.3f} ms, train batch (sample, burn-in + unrolls, "
+          f"loss, backward, clip, Adam, priorities) {batch_s * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, name)
+    _print_path_end(name, start)
+    return launches, err
 
-    # Where the step's time goes: rollout + insert, and one train batch.
-    insert_s = batch_s = 0.0
-    for _ in range(R2D2_TIMED_STEPS):
+
+def run_ppo(card, name):
+    """Phases 10 and 11: one PPO path through the CLI entry point, with the
+    launch counts reset just before it; returns the path's launches of the
+    hand kernels (none: its advantages are plain PyTorch)."""
+    from seed_rl_torch import train
+    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+    path = PPO_PATHS[name]
+    updates_per_step = path.epochs * path.minibatches
+    argv = [
+        "--agent=ppo", *path.flags,
+        f"--num_envs={path.envs}", f"--unroll_length={path.unroll}",
+        f"--epochs_per_step={path.epochs}",
+        f"--batches_per_step={path.minibatches}",
+        f"--total_environment_frames={PPO_STEPS * path.envs * path.unroll}",
+        "--steps_per_call=1", "--log_every_steps=1",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    learner, state, metrics = train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = {"vtrace": vtrace_kernel.launches,
+                "nstep": nstep_kernel.launches}
+    if state.step != PPO_STEPS:
+        raise RuntimeError(f"{name}: trained {state.step} steps, want "
+                           f"{PPO_STEPS}")
+    if learner.optimizer.count != state.step * updates_per_step:
+        raise RuntimeError(
+            f"{name}: {learner.optimizer.count} optimizer updates in "
+            f"{state.step} steps, want {updates_per_step} per step")
+    obs_norm = getattr(learner.agent, "obs_norm", ())
+    if obs_norm:
+        want = state.step * (path.unroll + 1) * path.envs
+        counts = obs_norm.observation_count
+        if not bool(torch.all(counts == want)):
+            raise RuntimeError(f"{name}: observation counts "
+                               f"{counts.tolist()}, want {want}")
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"{name}: non-finite metrics: {bad}")
+    tensors = learner.parameters() + learner.state_tensors(state)
+    off_card = [t.device for t in tensors if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
+    folded = int(obs_norm.observation_count[0]) if obs_norm else 0
+    total_loss = float(metrics["GeneralizedOnPolicyLoss/total_loss"])
+    print(f"{name} train: {state.step} steps in {wall_s:.3f} s including "
+          f"setup; {learner.optimizer.count} optimizer updates "
+          f"({path.epochs} epochs x {path.minibatches} minibatches a step, "
+          f"batch mode {learner.config.batch_mode}); {folded} observations "
+          f"folded per dim; hand-kernel launches {launches}; "
+          f"total_loss={total_loss:.6f}; {len(tensors)} tensors on cuda")
+
+    state, step_s, (rollout_s, update_s) = time_train_steps(
+        state, *_rollout_and_update(learner), PPO_TIMED_STEPS)
+    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
+          f"{learner.frames_per_step / step_s:.1f} env frames/s "
+          f"(num_envs={path.envs}, unroll_length={path.unroll}, {path.net})")
+    print(f"{name} per step: rollout {rollout_s * 1e3:.3f} ms, update "
+          f"({updates_per_step} minibatch steps: loss, backward, clip, Adam) "
+          f"{update_s * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, name)
+    _print_path_end(name, start)
+    return launches
+
+
+def _rollout_and_update(learner):
+    """An on-policy train step's two halves: the rollout, then the update
+    on its unroll."""
+    def rollout(state):
+        rollout_state, unroll = learner.engine.rollout(state.rollout)
+        return state._replace(rollout=rollout_state), unroll
+
+    def update(carry):
+        return learner.update(*carry)[0]
+
+    return rollout, update
+
+
+def time_train_steps(state, first_half, second_half, steps):
+    """Time ``steps`` train steps, each as its two halves with a synchronize
+    after each half, on a path that train.main has already warmed; returns
+    the state, the mean step time and the mean time of each half (s)."""
+    spent = [0.0, 0.0]
+    for _ in range(steps):
         t0 = time.perf_counter()
-        state = learner.warmup_step(state)
+        carry = first_half(state)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, _ = learner.train_on_batch(state)
+        state = second_half(carry)
         torch.cuda.synchronize()
-        insert_s += t1 - t0
-        batch_s += time.perf_counter() - t1
-    print(f"r2d2 per step on {card}: rollout + insert "
-          f"{insert_s / R2D2_TIMED_STEPS * 1e3:.3f} ms, train batch (sample, "
-          f"burn-in + unrolls, loss, backward, clip, Adam, priorities) "
-          f"{batch_s / R2D2_TIMED_STEPS * 1e3:.3f} ms")
-    profile_device_time(learner, state, step_s, "r2d2")
-    return launches, err
+        spent[0] += t1 - t0
+        spent[1] += time.perf_counter() - t1
+    halves = tuple(s / steps for s in spent)
+    return state, sum(halves), halves
+
+
+def _print_path_end(name, start):
+    print(f"{name}: peak device memory {_peak_memory_gb():.3f} GB "
+          f"(torch.cuda.max_memory_allocated); the path took "
+          f"{time.perf_counter() - start:.1f} s in all")
 
 
 def _device_kernels(prof):
@@ -708,32 +848,37 @@ def _device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
-def profile_device_time(learner, state, step_s, what, steps=3):
-    """Device busy time per step from torch.profiler, and the idle share
-    against the unprofiled step time."""
+def profile_device_time(learner, state, step_s, what):
+    """Device busy time of one train step from torch.profiler, and the idle
+    share against the unprofiled step time. Only the device activity is
+    traced: with the host's operators too, summing the PPO toy step's
+    events took 95 s of the script's 212 s on an H100."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(steps):
-            state, _ = learner.train_step(state)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        learner.train_step(state)
         torch.cuda.synchronize()
     kernels = _device_kernels(p)
-    busy_us = sum(e.self_device_time_total for e in kernels) / steps
-    launches = sum(e.count for e in kernels) / steps
+    profile_s = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
     if busy_us == 0:
         print(f"{what} profiler: no device time recorded; device busy share "
               "not measured")
         return
     print(f"{what} profiler: device busy {busy_us / 1e3:.3f} ms per step over "
           f"{launches:.0f} kernel launches; idle share "
-          f"{1 - busy_us / 1e6 / step_s:.3f} of the {step_s * 1e3:.3f} ms step")
+          f"{1 - busy_us / 1e6 / step_s:.3f} of the {step_s * 1e3:.3f} ms step"
+          f" (profiled and summed in {profile_s:.1f} s)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
-        print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
-              f"{e.count / steps:6.0f}x  {e.key[:90]}")
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms/step "
+              f"{e.count:6.0f}x  {e.key[:90]}")
 
 
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -767,16 +912,23 @@ def main():
     floor_ms = time_launch_floor(device)
     vtrace_times = time_vtrace_kernel(device, floor_ms)
     nstep_times = time_nstep_kernel(device, floor_ms)
-    vtrace_launches = {}
+    print(f"phases 1-4 (build, kernel checks, kernel timings) done at "
+          f"{time.perf_counter() - start:.1f} s")
+    vtrace_launches, nstep_launches = {}, {}
     vtrace_launches["toy"], err, _ = run_vtrace(smi, "toy")
     vtrace_err = max(vtrace_err, err)
-    nstep_launches, own_batch_err = run_r2d2(smi)
+    nstep_launches["discrete_match"], err = run_r2d2(smi, "discrete_match")
+    nstep_err = max(nstep_err, err)
     for name in ("synthetic_atari", "catch_impala_deep"):
         vtrace_launches[name], err, learner = run_vtrace(smi, name)
         vtrace_err = max(vtrace_err, err)
     run_eval_twice(learner)
+    nstep_launches["synthetic_atari"], err = run_r2d2(smi, "synthetic_atari")
+    nstep_err = max(nstep_err, err)
+    ppo_launches = {name: run_ppo(smi, name) for name in PPO_PATHS}
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
-          f"step); nstep launches: {nstep_launches}")
+          f"step); nstep launches per path: {nstep_launches} (one per insert "
+          f"and per train batch); PPO paths: {ppo_launches}")
 
     kernels = []
     for name, replaces, launches, err, times, extra in (
@@ -788,7 +940,7 @@ def main():
         # The loss shape's numbers at the top level, the insert shape's
         # under "insert".
         ("nstep", "seed_rl_tpu/ops/pallas/nstep_kernel.py:36",
-         nstep_launches, max(nstep_err, own_batch_err), nstep_times["loss"],
+         sum(nstep_launches.values()), nstep_err, nstep_times["loss"],
          {"insert": nstep_times["insert"]}),
     ):
         kernels.append({
@@ -803,6 +955,8 @@ def main():
             "library_ms": None,
             **extra,
         })
+    print(f"chip_smoke.py: all phases passed in "
+          f"{time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

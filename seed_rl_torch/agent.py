@@ -9,8 +9,11 @@ Sampling takes an explicit ``torch.Generator``; training unrolls skip it.
 For stateless networks the unroll folds time into batch (``batch_apply``);
 recurrent networks provide their own ``unroll``.
 
-``NormalizingObservationsAgent`` waits for ``ops/normalizer.py`` in a later
-slice.
+``NormalizingObservationsAgent`` normalizes observations by streaming
+statistics (``ops/normalizer.py``) before the wrapped agent's network sees
+them. Where the JAX package carries the statistics in the parameter tree,
+here the wrapper holds them as ``obs_norm``: they are never trained, and
+the learner folds each training step's observations into them once.
 """
 
 from typing import Any, Optional, Tuple
@@ -19,6 +22,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from seed_rl_torch.distributions import ParametricDistribution
+from seed_rl_torch.ops import normalizer
 from seed_rl_torch.types import AgentOutput, EnvOutput
 
 
@@ -76,3 +80,42 @@ class PolicyAgent:
             )
             return out, core_state
         return self.net.unroll(prev_actions, env_outputs, core_state)
+
+
+class NormalizingObservationsAgent:
+    """Observation-normalizing wrapper around a ``PolicyAgent``.
+
+    ``update_observation_normalization`` folds a training unroll's
+    observations into ``obs_norm``, once per training step.
+    """
+
+    def __init__(self, inner: PolicyAgent, observation_size: int):
+        self.inner = inner
+        self.net = inner.net
+        self.distribution = inner.distribution
+        device = next(inner.net.parameters()).device
+        self.obs_norm = normalizer.init(observation_size, device)
+
+    def initial_state(self, batch_size: int):
+        return self.inner.initial_state(batch_size)
+
+    def _normalized(self, env_outputs: EnvOutput) -> EnvOutput:
+        observation = normalizer.normalize_observation(
+            self.obs_norm, env_outputs.observation)
+        return env_outputs._replace(observation=observation)
+
+    def policy_step(self, prev_action, env_output, core_state,
+                    generator: Optional[torch.Generator] = None,
+                    deterministic: bool = False):
+        return self.inner.policy_step(
+            prev_action, self._normalized(env_output), core_state, generator,
+            deterministic)
+
+    def unroll(self, prev_actions, env_outputs, core_state):
+        return self.inner.unroll(prev_actions, self._normalized(env_outputs),
+                                 core_state)
+
+    def update_observation_normalization(self, observation):
+        """End-of-training-step statistics fold."""
+        self.obs_norm = normalizer.update_from_observation(
+            self.obs_norm, observation)

@@ -10,7 +10,9 @@ from its plain version on the CPU.
 
 Where the JAX package keeps parameters and optimizer state in a functional
 train state, here the network module and the learner hold them; the train
-state carries the rollout, the episode statistics and the step count.
+state carries the rollout, the episode statistics and the step count. With
+a ``NormalizingObservationsAgent`` the update folds the unroll's
+observations into the agent's statistics after the optimizer step.
 Truncation folds into ``done`` and is treated as termination, as in the
 JAX package.
 """
@@ -202,7 +204,10 @@ class VTraceLearner:
         return list(self.agent.net.parameters()) + [self.entropy_cost]
 
     def state_tensors(self, state: VTraceTrainState) -> List[torch.Tensor]:
-        return pytree.tree_leaves((state.rollout, state.stats))
+        """The train state's tensors and the agent's observation
+        statistics, if it normalizes."""
+        return pytree.tree_leaves((state.rollout, state.stats,
+                                   getattr(self.agent, "obs_norm", ())))
 
     def init(self) -> VTraceTrainState:
         """Starts the rollout and the counters (parameters live on the
@@ -232,6 +237,10 @@ class VTraceLearner:
         mul = self.config.entropy_cost_adjustment_speed
         with torch.no_grad():
             self.entropy_cost.clamp_(-20.0 / mul, 20.0 / mul)
+        # Observation-normalization statistics fold, once per training step.
+        if hasattr(self.agent, "update_observation_normalization"):
+            self.agent.update_observation_normalization(
+                unroll.timesteps.env_output.observation)
 
         # Episode accounting on the T new timesteps (skip the shared boundary
         # step, which the previous unroll already counted).

@@ -3,5 +3,9 @@ from seed_rl_torch.models.policy import (  # noqa: F401
     MLPPolicyNetwork,
 )
 from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet  # noqa: F401
-from seed_rl_torch.models.atari import AgentState, AtariPolicyNet  # noqa: F401
+from seed_rl_torch.models.atari import (  # noqa: F401
+    AgentState,
+    AtariPolicyNet,
+    DuelingLSTMDQNNet,
+)
 from seed_rl_torch.models.resnets import ImpalaDeep  # noqa: F401

@@ -1,14 +1,17 @@
-"""Atari network family: conv torso, frame stacking, the V-trace policy net.
+"""Atari network family: conv torso, frame stacking, policy and Q nets.
 
-Port of the parts of ``seed_rl_tpu/models/atari.py`` that V-trace from
-pixels runs (``DuelingLSTMDQNNet`` waits for R2D2 on pixels):
+Port of ``seed_rl_tpu/models/atari.py``:
 - ``AtariConvTorso``: 32x8s4 / 64x4s2 / 64x3s1 VALID convs + Dense 512 over
   frames scaled to [0, 1] in f32;
 - ``stack_frame`` / ``stack_frames_time_major``: the last ``stack_size``
   frames with the history zeroed across episode boundaries;
 - ``AgentState`` = (LSTM core state, frame-stacking history);
 - ``AtariPolicyNet``: torso, optional done-resetting LSTM, policy-logits and
-  baseline heads.
+  baseline heads (V-trace, PPO);
+- ``DuelingLSTMDQNNet``: torso, then ``[conv features, reward,
+  one_hot(prev_action)]`` into a done-resetting LSTM(512), then dueling
+  heads with hidden 512, a bias-free advantage head and mean-centred
+  advantages, and the greedy action (R2D2).
 
 Observations stay NHWC uint8, as envs emit them. The torso reads them as
 an NCHW view of NHWC memory, i.e. PyTorch's ``channels_last`` format, so
@@ -37,6 +40,7 @@ from seed_rl_torch.models.core import (
     lstm_initial_state,
     reset_state_where_done,
 )
+from seed_rl_torch.models.dueling_mlp import DuelingQHeads
 from seed_rl_torch.models.policy import _generator
 
 # (features, kernel, stride) of the Nature-DQN conv stack, VALID padding.
@@ -238,3 +242,70 @@ class AtariPolicyNet(nn.Module):
                 outputs.append(out)
             x = torch.stack(outputs)
         return self._heads(x), AgentState(core, frame_state)
+
+
+class DuelingLSTMDQNNet(DuelingQHeads, nn.Module):
+    """Dueling LSTM DQN from frames (R2D2).
+
+    ``forward(prev_action, env_output, agent_state)`` on ``[B]`` inputs and
+    ``unroll`` on time-major ``[T, B]`` inputs return
+    ``(QAgentOutput(action, q_values), AgentState)``. Epsilon-greedy
+    exploration is the R2D2 agent's (``agents/r2d2.py::R2D2Agent``).
+    """
+
+    stateless = False
+
+    def __init__(
+        self,
+        num_actions: int,
+        frame_shape: Tuple[int, int] = (84, 84),
+        stack_size: int = 4,
+        lstm_size: int = 512,
+        seed: int = 0,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        generator = _generator(seed)
+        self.frame_shape = tuple(frame_shape)
+        self.stack_size = stack_size
+        self.lstm_size = lstm_size
+        self.torso = AtariConvTorso(stack_size, frame_shape, generator)
+        self.core = LSTMStack(512 + 1 + num_actions, (lstm_size,), generator)
+        self._init_heads(lstm_size, 512, num_actions, generator)
+        self.to(device)
+
+    def initial_state(self, batch_size: int) -> AgentState:
+        device = self.value_head.weight.device
+        return AgentState(
+            core_state=lstm_initial_state((self.lstm_size,), batch_size,
+                                          device),
+            frame_stacking_state=initial_frame_stacking_state(
+                self.stack_size, batch_size, self.frame_shape, device),
+        )
+
+    def forward(self, prev_action, env_output, agent_state):
+        done = env_output.done
+        stacked, frame_state = stack_frame(
+            env_output.observation, agent_state.frame_stacking_state, done,
+            self.stack_size)
+        x = self._core_inputs(self.torso(stacked), prev_action,
+                              env_output.reward)
+        x, core = self.core(x, agent_state.core_state, done)
+        return self._heads(x), AgentState(core, frame_state)
+
+    def unroll(self, prev_actions, env_outputs, agent_state):
+        """[T, B] training path: folded torso/heads, the LSTM stepped."""
+        done = env_outputs.done
+        stacked, frame_state = stack_frames_time_major(
+            env_outputs.observation, agent_state.frame_stacking_state, done,
+            self.stack_size)
+        t, b = stacked.shape[:2]
+        conv_out = self.torso(stacked.reshape((t * b,) + stacked.shape[2:]))
+        x = self._core_inputs(conv_out.reshape(t, b, -1), prev_actions,
+                              env_outputs.reward)
+        core, outputs = agent_state.core_state, []
+        for step in range(t):
+            out, core = self.core(x[step], core, done[step])
+            outputs.append(out)
+        return self._heads(torch.stack(outputs)), AgentState(core, frame_state)

@@ -19,9 +19,15 @@ of the JAX package lands on the port's ``.grad`` layout too.
 
 Networks: ``MLPAndLSTM``, ``MLPPolicyNetwork``, ``VectorDuelingDQNNet``
 (whose single ``lstm`` cell and bias-free ``advantage_head`` map as above),
-``AtariPolicyNet`` (flax's scanned ``core/lstm`` -> ``core.cells.0``) and
-``ImpalaDeep`` (``torso/ResidualStack_k/Conv_0`` -> ``torso.stacks.k.conv``,
-``res_i_conv{0,1}`` -> ``torso.stacks.k.blocks.i.{0,1}``).
+``AtariPolicyNet`` (flax's scanned ``core/lstm`` -> ``core.cells.0``),
+``DuelingLSTMDQNNet`` (the same torso and core, then the dueling heads
+named as in ``VectorDuelingDQNNet``) and ``ImpalaDeep``
+(``torso/ResidualStack_k/Conv_0`` -> ``torso.stacks.k.conv``,
+``res_i_conv{0,1}`` -> ``torso.stacks.k.blocks.i.{0,1}``), and the PPO
+family's ``ContinuousControlNet`` (``{shared,policy,value}_torso/Dense_i``
+and ``LayerNorm_i`` -> ``*.layers.i`` and ``*.norms.i``, flax's LayerNorm
+``scale`` -> ``weight``; ``lstm_i`` -> ``lstm.cells.i``; the free log-std
+and the observation-correction affine as they are).
 """
 
 from typing import Dict, Tuple
@@ -29,7 +35,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from seed_rl_torch.models.atari import AtariPolicyNet
+from seed_rl_torch.agents.ppo.continuous_control_agent import (
+    ContinuousControlNet,
+)
+from seed_rl_torch.models.atari import AtariPolicyNet, DuelingLSTMDQNNet
 from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet
 from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
 from seed_rl_torch.models.resnets import ImpalaDeep
@@ -115,10 +124,8 @@ def mlp_policy_network_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def vector_dueling_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
-    p = _unwrap(params)
-    out = _mlp_torso(p["MLPTorso_0"], "torso.")
-    out.update(_lstm_cell(p["lstm"], "lstm.cells.0."))
+def _dueling_heads(p) -> Dict[str, torch.Tensor]:
+    out = {}
     for name in ("hidden_value", "value_head", "hidden_advantage"):
         out.update(_dense(p[name], f"{name}."))
     out["advantage_head.weight"] = _tensor(
@@ -127,16 +134,36 @@ def vector_dueling_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def atari_policy_net_state_dict(params) -> Dict[str, torch.Tensor]:
+def vector_dueling_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
     p = _unwrap(params)
-    torso = p["torso"]
+    out = _mlp_torso(p["MLPTorso_0"], "torso.")
+    out.update(_lstm_cell(p["lstm"], "lstm.cells.0."))
+    out.update(_dueling_heads(p))
+    return out
+
+
+def _atari_torso(torso) -> Dict[str, torch.Tensor]:
     out = {}
     for i, layer in enumerate(_indexed(torso, "Conv_")):
         out.update(_conv(layer, f"torso.convs.{i}."))
     out.update(_dense(torso["Dense_0"], "torso.dense."))
+    return out
+
+
+def atari_policy_net_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    out = _atari_torso(p["torso"])
     if "core" in p:
         out.update(_lstm_cell(p["core"]["lstm"], "core.cells.0."))
     out.update(_heads(p))
+    return out
+
+
+def dueling_lstm_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    out = _atari_torso(p["torso"])
+    out.update(_lstm_cell(p["core"]["lstm"], "core.cells.0."))
+    out.update(_dueling_heads(p))
     return out
 
 
@@ -159,6 +186,28 @@ def impala_deep_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def continuous_control_net_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    out = {}
+    for torso in ("shared_torso", "policy_torso", "value_torso"):
+        if torso not in p:
+            continue
+        for i, layer in enumerate(_indexed(p[torso], "Dense_")):
+            out.update(_dense(layer, f"{torso}.layers.{i}."))
+        for i, norm in enumerate(_indexed(p[torso], "LayerNorm_")):
+            out[f"{torso}.norms.{i}.weight"] = _tensor(norm["scale"])
+            out[f"{torso}.norms.{i}.bias"] = _tensor(norm["bias"])
+    for i, cell in enumerate(_indexed(p, "lstm_")):
+        out.update(_lstm_cell(cell, f"lstm.cells.{i}."))
+    out.update(_dense(p["policy_head"], "policy_head."))
+    out.update(_dense(p["value_head"], "value_head."))
+    for name in ("free_log_std", "obs_correction_scale",
+                 "obs_correction_bias"):
+        if name in p:
+            out[name] = _tensor(p[name])
+    return out
+
+
 def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``net``'s type built from a flax tree."""
     if isinstance(net, MLPAndLSTM):
@@ -169,8 +218,12 @@ def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
         return vector_dueling_dqn_net_state_dict(params)
     if isinstance(net, AtariPolicyNet):
         return atari_policy_net_state_dict(params)
+    if isinstance(net, DuelingLSTMDQNNet):
+        return dueling_lstm_dqn_net_state_dict(params)
     if isinstance(net, ImpalaDeep):
         return impala_deep_state_dict(params)
+    if isinstance(net, ContinuousControlNet):
+        return continuous_control_net_state_dict(params)
     raise TypeError(f"no flax converter for {type(net).__name__}")
 
 

@@ -6,7 +6,10 @@ optax.adam(schedule, b1=b1, eps=eps))`` over a list of parameters:
   ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm;
 - ``torch.optim.Adam`` matches ``optax.adam`` (eps outside the square root);
 - the learning rate follows optax's ``linear_schedule`` over optimizer
-  updates when ``end_learning_rate`` is given.
+  updates when ``end_learning_rate`` is given;
+- a parameter the loss did not reach steps with a zero gradient, as optax
+  gives it one: its moments decay and it moves on them, where
+  ``torch.optim.Adam`` would skip it and keep a step count of its own.
 """
 
 from typing import Iterable, List, Optional
@@ -74,7 +77,10 @@ class ClippedAdam:
     def step(self) -> torch.Tensor:
         """Clips, applies Adam; returns the global gradient norm before the
         clip (what the JAX learners log as ``grad/norm``)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         if self.clip_norm is not None:
             norm = clip_by_global_norm_(grads, self.clip_norm)
         else:

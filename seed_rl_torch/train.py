@@ -3,18 +3,30 @@
 Port of these paths of ``seed_rl_tpu/train.py``, with the same flag names
 and defaults, plus ``--device`` (default: the CUDA device; ``--device=cpu``
 runs on the CPU):
-- ``--agent=vtrace --env={toy,toy_memory}`` (``MLPAndLSTM``);
+- ``--agent=vtrace --env={toy,toy_memory}`` (``MLPAndLSTM``), with
+  ``--normalize_observations`` if asked;
 - ``--agent=vtrace --env={catch,synthetic_atari}`` from 84x84 uint8 frames:
   ``AtariPolicyNet`` (4 stacked frames, LSTM 256) by default, or
   ``ImpalaDeep`` with ``--conv_net=impala_deep`` (``--remat_torso``
   recomputes its torso in the backward pass);
-- ``--agent=r2d2 --env=discrete_match`` (``VectorDuelingDQNNet``, the fused
-  on-device learner with prioritized replay).
-Other agent/env pairs, run modes, checkpoints, observation normalization,
-host-env replay ratios and more than one replica are not ported yet and
-raise ``NotImplementedError`` rather than being ignored. ``--conv_net=atari``
-is accepted and ignored by the JAX CLI; here it raises ``ValueError``, as do
-``--conv_net=impala_deep`` and ``--remat_torso`` where no conv net runs.
+- ``--agent=r2d2 --env=discrete_match`` (``VectorDuelingDQNNet``) and
+  ``--agent=r2d2 --env={catch,synthetic_atari}`` (``DuelingLSTMDQNNet``,
+  4 stacked frames, LSTM 512): the fused on-device learner with
+  prioritized replay;
+- ``--agent=ppo`` with each ``--policy_loss``, ``--batch_mode`` and
+  ``--advantage_estimator``: on ``toy`` / ``toy_memory`` a 2x64 tanh
+  ``ContinuousControlNet`` behind observation normalization (stateless, so
+  ``split`` by default), on ``discrete_match`` ``MLPAndLSTM``, on ``catch``
+  / ``synthetic_atari`` ``AtariPolicyNet`` with LSTM 256 (recurrent, so
+  ``shuffle`` by default); PopArt on the value targets throughout.
+Other agent/env pairs, run modes, checkpoints (and PPO's action points:
+checkpoints, saved models, snapshots), observation normalization outside
+V-trace on the toy envs, host-env replay ratios and more than one replica
+are not ported yet and raise ``NotImplementedError`` rather than being
+ignored. Where the JAX CLI accepts a flag and ignores it, this one raises
+``ValueError``: ``--conv_net=atari``, ``--conv_net=impala_deep`` and
+``--remat_torso`` where no conv net reads them, and a ``--lambda_`` other
+than its default under ``--agent=vtrace``.
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -25,6 +37,9 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=catch \
       --num_envs=256 --unroll_length=20 --entropy_cost=0.01 \
       --learning_rate=1e-3 --total_environment_frames=3000000
+  python -m seed_rl_torch.train --agent=ppo --env=toy \
+      --num_envs=128 --unroll_length=16 --epochs_per_step=10 \
+      --batches_per_step=32 --learning_rate=3e-4 --clip_norm=0.5
 """
 
 import argparse
@@ -47,10 +62,13 @@ RUN_MODES = ["train", "eval", "profile", "actor", "learner"]
 # agent -> the envs it is ported for.
 PORTED = {
     "vtrace": ("toy", "toy_memory", "catch", "synthetic_atari"),
-    "r2d2": ("discrete_match",),
+    "r2d2": ("discrete_match", "catch", "synthetic_atari"),
+    "ppo": ("toy", "toy_memory", "discrete_match", "catch",
+            "synthetic_atari"),
 }
 # Envs whose observations are frames, for the conv nets.
 PIXEL_ENVS = ("catch", "synthetic_atari")
+LAMBDA_DEFAULT = 0.95
 
 
 def parse_args(argv=None):
@@ -77,7 +95,9 @@ def parse_args(argv=None):
     p.add_argument("--init_checkpoint", default=None)
     p.add_argument("--steps_per_call", type=int, default=10)
     p.add_argument("--log_every_steps", type=int, default=20)
-    p.add_argument("--normalize_observations", action="store_true")
+    p.add_argument("--normalize_observations", action="store_true",
+                   help="streaming mean/std observation normalization "
+                        "(--agent=vtrace on toy/toy_memory)")
     p.add_argument("--num_replicas", type=int, default=0,
                    help="0 = all local devices; more than one is not "
                         "ported yet")
@@ -114,6 +134,31 @@ def parse_args(argv=None):
     p.add_argument("--train_batches_per_step", type=int, default=1,
                    help="R2D2 optimization batches per rollout cycle")
     p.add_argument("--num_eval_envs", type=int, default=0)
+    # The on-policy family (--agent=ppo).
+    p.add_argument("--lambda_", type=float, default=LAMBDA_DEFAULT,
+                   help="GAE / V-trace lambda of --advantage_estimator "
+                        "(--agent=ppo)")
+    p.add_argument("--epochs_per_step", type=int, default=10)
+    p.add_argument("--batch_mode", default=None,
+                   choices=["repeat", "shuffle", "split",
+                            "split_with_advantage_recomputation"],
+                   help="default: split for stateless nets, shuffle for "
+                        "recurrent ones")
+    p.add_argument("--batches_per_step", type=int, default=32)
+    p.add_argument("--policy_loss", default="ppo",
+                   choices=["ppo", "vmpo", "awr", "pg", "vtrace"])
+    p.add_argument("--ppo_epsilon", type=float, default=0.2)
+    p.add_argument("--awr_beta", type=float, default=1.0)
+    p.add_argument("--awr_w_max", type=float, default=20.0)
+    p.add_argument("--vmpo_e_n", type=float, default=0.1,
+                   help="V-MPO temperature constraint threshold")
+    p.add_argument("--ppo_entropy_cost", type=float, default=0.0,
+                   help="entropy bonus in the on-policy regularizer")
+    p.add_argument("--advantage_estimator", default="gae",
+                   choices=["gae", "vtrace"])
+    p.add_argument("--num_checkpoints", type=int, default=0)
+    p.add_argument("--num_saved_models", type=int, default=0)
+    p.add_argument("--num_snapshots", type=int, default=0)
     return p.parse_args(argv)
 
 
@@ -134,8 +179,13 @@ def _refuse_unported(args):
         refuse("--logdir (checkpoints and TensorBoard logs)")
     if args.init_checkpoint is not None:
         refuse("--init_checkpoint")
-    if args.normalize_observations:
-        refuse("--normalize_observations")
+    if args.normalize_observations and (
+            args.agent != "vtrace" or args.env in PIXEL_ENVS):
+        refuse(f"--normalize_observations with --agent={args.agent} "
+               f"--env={args.env}")
+    for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
+        if getattr(args, flag):
+            refuse(f"--{flag} (action points need checkpoints and export)")
     if args.replay_ratio is not None:
         refuse("--replay_ratio (host-env replay)")
     if args.conv_net == "atari":
@@ -148,6 +198,9 @@ def _refuse_unported(args):
                          f"pixel env ({', '.join(PIXEL_ENVS)})")
     if args.remat_torso and args.conv_net != "impala_deep":
         raise ValueError("--remat_torso needs --conv_net=impala_deep")
+    if args.agent == "vtrace" and args.lambda_ != LAMBDA_DEFAULT:
+        raise ValueError("--lambda_ is read by --agent=ppo only; V-trace "
+                         "keeps lambda 1 (the JAX CLI ignores the flag)")
 
 
 def _refuse_replicas(args, device):
@@ -188,11 +241,13 @@ def main(argv=None):
     env = make_env(args, device)
     # Linear decay over optimizer updates, the reference's PolynomialDecay
     # with power 1: one update per V-trace step, train_batches_per_step per
-    # R2D2 step.
+    # R2D2 step, epochs_per_step x batches_per_step per PPO step.
     frames_per_rollout = max(1, args.num_envs * args.unroll_length)
     updates = max(1, args.total_environment_frames // frames_per_rollout)
     if args.agent == "r2d2":
         updates *= max(1, args.train_batches_per_step)
+    elif args.agent == "ppo":
+        updates *= max(1, args.epochs_per_step * args.batches_per_step)
     decay = args.lr_decay_multiplier != 1.0
     optimizer = functools.partial(
         optim.ClippedAdam,
@@ -207,6 +262,8 @@ def main(argv=None):
     )
     if args.agent == "r2d2":
         learner, loop = _r2d2_learner(args, env, optimizer, device)
+    elif args.agent == "ppo":
+        learner, loop = _ppo_learner(args, env, optimizer, device)
     else:
         learner, loop = _vtrace_learner(args, env, optimizer, device)
     state, metrics = loop(
@@ -221,7 +278,7 @@ def main(argv=None):
 
 def _vtrace_learner(args, env, optimizer, device):
     from seed_rl_torch import distributions as pd
-    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agent import NormalizingObservationsAgent, PolicyAgent
     from seed_rl_torch.agents import vtrace as vtrace_agent
     from seed_rl_torch.models import AtariPolicyNet, ImpalaDeep, MLPAndLSTM
     from seed_rl_torch.rollout import RolloutEngine
@@ -246,6 +303,8 @@ def _vtrace_learner(args, env, optimizer, device):
             device=device,
         )
     agent = PolicyAgent(net, dist)
+    if args.normalize_observations:
+        agent = NormalizingObservationsAgent(agent, math.prod(obs_shape))
     config = vtrace_agent.VTraceConfig(
         discounting=args.discounting,
         entropy_cost=args.entropy_cost,
@@ -259,15 +318,22 @@ def _vtrace_learner(args, env, optimizer, device):
 
 def _r2d2_learner(args, env, optimizer, device):
     from seed_rl_torch.agents import r2d2
-    from seed_rl_torch.models import VectorDuelingDQNNet
+    from seed_rl_torch.models import DuelingLSTMDQNNet, VectorDuelingDQNNet
     from seed_rl_torch.rollout import RolloutEngine
 
-    net = VectorDuelingDQNNet(
-        num_actions=env.action_space.n,
-        input_size=math.prod(env.observation_spec().shape),
-        seed=0,
-        device=device,
-    )
+    obs_shape = tuple(env.observation_spec().shape)
+    if args.env in PIXEL_ENVS:
+        net = DuelingLSTMDQNNet(
+            num_actions=env.action_space.n, frame_shape=obs_shape[:2],
+            seed=0, device=device,
+        )
+    else:
+        net = VectorDuelingDQNNet(
+            num_actions=env.action_space.n,
+            input_size=math.prod(obs_shape),
+            seed=0,
+            device=device,
+        )
     num_training = args.num_envs - args.num_eval_envs
     config = r2d2.R2D2Config(
         discounting=args.discounting,
@@ -293,6 +359,97 @@ def _r2d2_learner(args, env, optimizer, device):
     )
     learner = r2d2.R2D2Learner(engine, agent, config, optimizer, seed=2)
     return learner, r2d2.learner_loop
+
+
+def _ppo_learner(args, env, optimizer, device):
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agents.ppo import policy_losses
+    from seed_rl_torch.agents.ppo.continuous_control_agent import (
+        ContinuousControlNet,
+        NormalizingPolicyAgent,
+    )
+    from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
+        GeneralizedOnPolicyLoss,
+    )
+    from seed_rl_torch.agents.ppo.input_normalization import (
+        InputNormalization,
+    )
+    from seed_rl_torch.agents.ppo.learner import (
+        PPOConfig,
+        PPOLearner,
+        learner_loop,
+    )
+    from seed_rl_torch.agents.ppo.policy_regularizers import (
+        KLPolicyRegularizer,
+    )
+    from seed_rl_torch.models import AtariPolicyNet, MLPAndLSTM
+    from seed_rl_torch.ops.advantages import GAE, VTrace
+    from seed_rl_torch.ops.popart import PopArt
+    from seed_rl_torch.ops.running_statistics import AverageMeanStd
+    from seed_rl_torch.rollout import RolloutEngine
+
+    space = env.action_space
+    obs_shape = tuple(env.observation_spec().shape)
+    if hasattr(space, "n"):  # discrete: a recurrent net
+        dist = pd.get_parametric_distribution_for_action_space(space)
+        if args.env in PIXEL_ENVS:
+            net = AtariPolicyNet(
+                parametric_distribution_param_size=dist.param_size,
+                frame_shape=obs_shape[:2], stack_size=4, lstm_size=256,
+                seed=0, device=device)
+        else:
+            net = MLPAndLSTM(
+                parametric_distribution_param_size=dist.param_size,
+                input_size=math.prod(obs_shape), seed=0, device=device)
+        agent = PolicyAgent(net, dist)
+    else:  # continuous: the HalfCheetah PPO net and input normalization
+        dist = pd.get_parametric_distribution_for_action_space(
+            space, pd.continuous_action_config(
+                action_gaussian_std_fn="safe_exp"))
+        obs_size = math.prod(obs_shape)
+        net = ContinuousControlNet(
+            parametric_distribution_param_size=dist.param_size,
+            input_size=obs_size, num_layers_policy=2, num_layers_value=2,
+            num_units_policy=64, num_units_value=64, activation=torch.tanh,
+            kernel_init_gain=math.sqrt(2.0),
+            last_kernel_init_policy_gain=0.01,
+            last_kernel_init_value_gain=1.0, std_independent_of_input=True,
+            seed=0, device=device)
+        agent = NormalizingPolicyAgent(
+            net, dist,
+            input_normalization=InputNormalization(AverageMeanStd(),
+                                                   input_size=obs_size),
+            input_clipping=10.0)
+    policy_loss = {
+        "ppo": lambda: policy_losses.ppo(epsilon=args.ppo_epsilon),
+        "vmpo": lambda: policy_losses.vmpo(e_n=args.vmpo_e_n),
+        "awr": lambda: policy_losses.awr(beta=args.awr_beta,
+                                         w_max=args.awr_w_max),
+        "pg": policy_losses.pg,
+        "vtrace": policy_losses.vtrace_is,
+    }[args.policy_loss]()
+    estimator = (GAE if args.advantage_estimator == "gae" else VTrace)(
+        lambda_=args.lambda_)
+    loss = GeneralizedOnPolicyLoss(
+        agent=agent,
+        reward_normalizer=PopArt(AverageMeanStd(), compensate=False),
+        parametric_action_distribution=dist,
+        advantage_estimator=estimator,
+        policy_loss=policy_loss,
+        discount_factor=args.discounting,
+        regularizer=KLPolicyRegularizer(entropy=args.ppo_entropy_cost),
+        baseline_cost=1.0,
+    )
+    config = PPOConfig(
+        epochs_per_step=args.epochs_per_step,
+        batch_mode=args.batch_mode or ("split" if net.stateless
+                                       else "shuffle"),
+        batches_per_step=args.batches_per_step,
+    )
+    engine = RolloutEngine(env, agent, args.unroll_length, seed=1)
+    learner = PPOLearner(engine, agent, loss, config, optimizer, seed=2)
+    return learner, learner_loop
 
 
 if __name__ == "__main__":

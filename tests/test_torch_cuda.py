@@ -319,3 +319,174 @@ def test_pixel_vtrace_launches_the_kernel_once_per_step(cuda, argv):
     assert all(math.isfinite(float(v)) for v in metrics.values())
     for t in learner.parameters() + learner.state_tensors(state):
         assert t.device.type == "cuda"
+
+
+def test_dueling_lstm_dqn_net_on_the_card_matches_the_cpu(cuda):
+    """DuelingLSTMDQNNet at full width (LSTM 512, 18 actions) on the card vs
+    the CPU, same weights, at the tolerances of the pixel nets above."""
+    from seed_rl_torch.models import DuelingLSTMDQNNet
+    from seed_rl_torch.types import EnvOutput
+
+    B, T = 8, 3
+    rng = np.random.RandomState(5)
+    eo = EnvOutput(
+        reward=torch.tensor(rng.normal(size=(T, B)), dtype=torch.float32),
+        done=torch.tensor(rng.uniform(size=(T, B)) < 0.3),
+        observation=torch.tensor(rng.randint(0, 256, (T, B, 84, 84, 1)),
+                                 dtype=torch.uint8),
+        abandoned=torch.zeros(T, B, dtype=torch.bool),
+        episode_step=torch.zeros(T, B, dtype=torch.int32),
+    )
+    prev = torch.tensor(rng.randint(0, 18, (T, B)), dtype=torch.int32)
+    cpu_net = DuelingLSTMDQNNet(18, seed=3, device="cpu")
+    card_net = DuelingLSTMDQNNet(18, seed=3, device=cuda)
+    with torch.no_grad():
+        want, want_state = cpu_net.unroll(prev, eo, cpu_net.initial_state(B))
+        card_eo = EnvOutput(*(x.to(cuda) for x in eo))
+        tf32 = torch.backends.cudnn.allow_tf32
+        for allow, tol in ((False, dict(rtol=1e-4, atol=1e-5)),
+                           (tf32, dict(rtol=1e-2, atol=1e-2))):
+            torch.backends.cudnn.allow_tf32 = allow
+            try:
+                got, state = card_net.unroll(prev.to(cuda), card_eo,
+                                             card_net.initial_state(B))
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            torch.testing.assert_close(got.q_values.cpu(), want.q_values,
+                                       **tol)
+            for g, w in zip(pytree.tree_leaves(state),
+                            pytree.tree_leaves(want_state)):
+                torch.testing.assert_close(g.cpu(), w, **tol)
+            if not allow:  # in f32 the greedy actions agree too
+                assert torch.equal(got.action.cpu(), want.action)
+
+
+@pytest.mark.parametrize("env", ["catch", "synthetic_atari"])
+def test_r2d2_from_pixels_launches_the_kernel_per_insert_and_batch(cuda,
+                                                                  env):
+    from seed_rl_torch import train
+    from seed_rl_torch.models import DuelingLSTMDQNNet
+
+    nstep_kernel.launches = 0
+    learner, state, metrics = train.main([
+        "--agent=r2d2", f"--env={env}", "--num_envs=16", "--num_eval_envs=2",
+        "--unroll_length=10", "--burn_in=4", "--batch_size=8",
+        "--replay_buffer_size=64", "--replay_buffer_min_size=28",
+        "--train_batches_per_step=2", "--total_environment_frames=320",
+        "--steps_per_call=1", "--log_every_steps=1",
+    ])
+    # 2 warmup inserts of 14 training envs, then 2 steps of 1 insert + 2
+    # batches.
+    assert isinstance(learner.net, DuelingLSTMDQNNet)
+    assert state.step == 2 and nstep_kernel.launches == 2 + 2 * 3
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    tensors = (learner.parameters() + list(learner.target_net.parameters())
+               + learner.state_tensors(state))
+    for t in tensors:
+        assert t.device.type == "cuda"
+
+
+def _ppo_learner(kind, device):
+    """A one-minibatch PPO learner around the CLI's net for ``kind``, with
+    the same weights on every device."""
+    import functools
+
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch import optim
+    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agents.ppo import learner as ppo, policy_losses
+    from seed_rl_torch.agents.ppo.continuous_control_agent import (
+        ContinuousControlNet,
+        NormalizingPolicyAgent,
+    )
+    from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
+        GeneralizedOnPolicyLoss,
+    )
+    from seed_rl_torch.agents.ppo.input_normalization import (
+        InputNormalization,
+    )
+    from seed_rl_torch.agents.ppo.policy_regularizers import (
+        KLPolicyRegularizer,
+    )
+    from seed_rl_torch.envs import BatchedEnv, SyntheticAtariEnv, ToyEnv
+    from seed_rl_torch.models import AtariPolicyNet
+    from seed_rl_torch.ops.advantages import GAE
+    from seed_rl_torch.ops.popart import PopArt
+    from seed_rl_torch.ops.running_statistics import AverageMeanStd
+    from seed_rl_torch.rollout import RolloutEngine
+
+    if kind == "continuous":
+        env = BatchedEnv(ToyEnv(), 16, device=device)
+        dist = pd.get_parametric_distribution_for_action_space(
+            env.action_space,
+            pd.continuous_action_config(action_gaussian_std_fn="safe_exp"))
+        net = ContinuousControlNet(
+            dist.param_size, 4, num_layers_policy=2, num_layers_value=2,
+            num_units_policy=64, num_units_value=64, activation=torch.tanh,
+            kernel_init_gain=2 ** 0.5, last_kernel_init_policy_gain=0.01,
+            last_kernel_init_value_gain=1.0, std_independent_of_input=True,
+            seed=4, device=device)
+        agent = NormalizingPolicyAgent(
+            net, dist, InputNormalization(AverageMeanStd(), 4), 10.0)
+        mode = "split"
+    else:
+        env = BatchedEnv(SyntheticAtariEnv(), 8, device=device)
+        dist = pd.get_parametric_distribution_for_action_space(
+            env.action_space)
+        net = AtariPolicyNet(dist.param_size, stack_size=4, lstm_size=256,
+                             seed=4, device=device)
+        agent = PolicyAgent(net, dist)
+        mode = "shuffle"
+    loss = GeneralizedOnPolicyLoss(
+        agent=agent, reward_normalizer=PopArt(AverageMeanStd(), False),
+        parametric_action_distribution=dist,
+        advantage_estimator=GAE(lambda_=0.95),
+        policy_loss=policy_losses.ppo(0.2), discount_factor=0.99,
+        regularizer=KLPolicyRegularizer(entropy=0.01), baseline_cost=1.0)
+    return ppo.PPOLearner(
+        RolloutEngine(env, agent, 6), agent, loss,
+        ppo.PPOConfig(epochs_per_step=1, batch_mode=mode,
+                      batches_per_step=1),
+        functools.partial(optim.ClippedAdam, learning_rate=1e-4,
+                          clip_norm=0.5))
+
+
+@pytest.mark.parametrize("kind", ["continuous", "atari"])
+def test_ppo_minibatch_step_on_the_card_matches_the_cpu(cuda, kind):
+    """One PPO minibatch step (the CLI's net for a continuous and a pixel
+    env) on the card vs the CPU on one unroll, with the permutation and the
+    entropy noise injected and TF32 off: logs within rtol 1e-4 / atol 1e-5
+    (sums in another order), parameters after the Adam step within rtol
+    1e-3 / atol 1e-4 (a gradient element near Adam's eps turns a summation
+    difference into a share of the learning rate)."""
+    cpu, card = _ppo_learner(kind, "cpu"), _ppo_learner(kind, cuda)
+    _, unroll = cpu.engine.rollout(cpu.engine.init())
+    batch = unroll.timesteps.env_output.reward.shape[1]
+    T = unroll.timesteps.env_output.reward.shape[0] - 1
+    mb = T * batch if kind == "continuous" else batch
+    perm = torch.randperm(mb, generator=torch.Generator().manual_seed(0))
+    noise_shape = (1, mb, 3) if kind == "continuous" else None
+    noise = (torch.randn(noise_shape,
+                         generator=torch.Generator().manual_seed(1))
+             if noise_shape else None)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = []
+        for learner, device in ((cpu, "cpu"), (card, cuda)):
+            on = pytree.tree_map(lambda t: t.to(device), unroll)
+            state, logs = learner.update(
+                learner.init(), on, permutations=[perm.to(device)],
+                entropy_noise=[None if noise is None else noise.to(device)])
+            results.append((logs, learner.parameters()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (want_logs, want_params), (logs, params) = results
+    assert card.optimizer.count == 1
+    for k in want_logs:
+        torch.testing.assert_close(logs[k].cpu(), want_logs[k], rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    for got, want in zip(params, want_params):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   rtol=1e-3, atol=1e-4)

@@ -50,6 +50,17 @@ from seed_rl_torch.utils import episode_stats
 TOL = dict(rtol=1e-4, atol=1e-5)
 # The parameters after one Adam step (see the module docstring).
 UPDATED_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Many small ops: one intra-op thread, so that the other test
+    processes sharing the cores do not stall every op's thread barrier
+    (see tests/test_torch_vtrace_agent.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 # 36x36 frames for the Nature-DQN torso (its smallest), 12x12 for ImpalaDeep.
 CATCH = {"atari": dict(rows=6, cols=6, cell_pixels=6, balls_per_episode=2),
          "impala": dict(rows=6, cols=6, cell_pixels=2, balls_per_episode=2)}
@@ -288,8 +299,8 @@ def test_train_main_remat_torso_on_cpu():
     (["--env=catch", "--remat_torso"], ValueError),
     (["--env=dmlab"], NotImplementedError),
     (["--env=catch_continuous"], NotImplementedError),
-    (["--agent=r2d2", "--env=catch"], NotImplementedError),
-    (["--agent=r2d2", "--env=synthetic_atari"], NotImplementedError),
+    (["--agent=r2d2", "--env=atari"], NotImplementedError),
+    (["--agent=sac", "--env=synthetic_atari"], NotImplementedError),
 ])
 def test_train_main_refuses_pixel_options_it_does_not_take(argv, error):
     with pytest.raises(error):

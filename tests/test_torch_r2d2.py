@@ -52,6 +52,17 @@ A, OBS = 4, 4
 SMALL_NET = dict(mlp_sizes=(16,), lstm_size=8, hidden_size=16)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Many small ops: one intra-op thread, so that the other test
+    processes sharing the cores do not stall every op's thread barrier
+    (see tests/test_torch_vtrace_agent.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
