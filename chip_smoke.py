@@ -62,15 +62,32 @@ Phases, in order; any failure exits non-zero:
  11. PPO from pixels, as phase 10: synthetic Atari frames with
      AtariPolicyNet (LSTM 256), 512 envs x unroll 32, shuffle, 2 epochs x
      8 minibatches, entropy cost 0.01 (bench.py's ppo_atari shape);
- 12. print the V-trace and n-step launches of each path, and the kernels
+ 12. SAC from frames at bench.py's bench_sac_visual shape: ContinuousCatch
+     (84x84x1 uint8 frames, a Box(1) paddle velocity), 512 envs x unroll
+     2, batch 1024, a 16384-unroll replay of frames, polyak 0.995, lr
+     3e-4, clip 40, one batch a step (the CLI's), VisualActorCritic at its
+     full width (Nature torso, heads of 256, 2 critics), f32; checks one
+     optimizer update and one polyak move per train step, everything on
+     the card, finite metrics and alpha inside its clip, then holds the
+     loss, its metrics and its gradients on the card against the same
+     code on the CPU on a batch sampled from the run's replay (TF32 off,
+     the loss's noise injected); times the step and its halves (rollout +
+     insert, train batch), profiles one step, prints the replay's size,
+     the peak memory and the path's seconds;
+ 13. recurrent SAC with HER, as phase 12: bit_flipping (dict
+     observations), ActorCriticLSTM (LSTM 256, MLPs of 256, 4 nets, the
+     desired goal withheld from the LSTMs), HER windows of 16 cut to
+     unrolls of 2, 256 envs, batch 256, a 4096-window replay;
+ 14. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
      those of all three V-trace paths, the n-step kernel's those of both
-     R2D2 paths. The PPO paths launch neither kernel: their advantage
-     estimators are plain PyTorch, as in the JAX package.
+     R2D2 paths. The PPO and SAC paths launch neither kernel: the PPO
+     advantage estimators are plain PyTorch and SAC has no recursion over
+     time, as in the JAX package.
 The TF32 settings of convolutions and matrix products are printed once;
 the script and the port leave PyTorch's defaults as they are.
 The last line of standard output is the device JSON:
@@ -230,6 +247,41 @@ PPO_PATHS = {
 }
 # Train steps inside train.main, and timed afterwards, on both PPO paths.
 PPO_STEPS, PPO_TIMED_STEPS = 2, 2
+
+
+class SACPath(NamedTuple):
+    """One SAC path driven through seed_rl_torch.train.main."""
+
+    flags: Tuple[str, ...]  # besides the agent, envs, budget and logging
+    envs: int
+    rollout: int  # steps a rollout: the unroll, or the HER window
+    net: str  # as printed
+
+
+SAC_PATHS = {
+    # bench.py:500-516 (bench_sac_visual) at the CLI's one batch a step.
+    "sac_catch_continuous": SACPath(
+        ("--env=catch_continuous", "--unroll_length=2", "--batch_size=1024",
+         "--replay_buffer_size=16384", "--replay_buffer_min_size=512",
+         "--polyak=0.995", "--learning_rate=3e-4", "--clip_norm=40"),
+        512, 2, "VisualActorCritic, Nature torso, heads (256,), 2 critics, "
+        "84x84x1 frames"),
+    "sac_bit_flipping_her": SACPath(
+        ("--env=bit_flipping", "--sac_net=lstm", "--her_window_length=16",
+         "--unroll_length=2", "--batch_size=256",
+         "--replay_buffer_size=4096", "--replay_buffer_min_size=256"),
+        256, 16, "ActorCriticLSTM, LSTM 256, MLPs (256,), 4 nets, HER "
+        "windows of 16 cut to unrolls of 2"),
+}
+# Train steps inside train.main, and timed afterwards, on both SAC paths;
+# the batch of the card-vs-CPU loss check.
+SAC_STEPS, SAC_TIMED_STEPS, SAC_CHECK_BATCH = 3, 5, 32
+# The card's loss and metrics against the CPU's; the gradients at rtol
+# 1e-3: cuDNN and cuBLAS reduce over the batch in another order, and a
+# gradient element that is a difference of near-equal sums keeps the
+# absolute error of the sums, not their relative one.
+SAC_TOL = dict(rtol=1e-4, atol=1e-5)
+SAC_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 
 # Device time (torch.profiler, 20 launches) of each kernel's first design,
 # one thread per column walking every row in series, as this script
@@ -800,6 +852,152 @@ def run_ppo(card, name):
     return launches
 
 
+def run_sac(card, name):
+    """Phases 12 and 13: one SAC path through the CLI entry point, with the
+    launch counts reset just before it; returns the path's launches of the
+    hand kernels (none)."""
+    from seed_rl_torch import train
+    from seed_rl_torch.agents import sac
+    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+    path = SAC_PATHS[name]
+    argv = [
+        "--agent=sac", *path.flags, f"--num_envs={path.envs}",
+        f"--total_environment_frames={SAC_STEPS * path.envs * path.rollout}",
+        "--steps_per_call=1", "--log_every_steps=1",
+    ]
+    # Count the polyak moves inside train.main.
+    moves = []
+    move_target = sac.SACLearner._move_target
+
+    def counted(learner):
+        moves.append(learner)
+        move_target(learner)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    sac.SACLearner._move_target = counted
+    try:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sac.SACLearner._move_target = move_target
+    wall_s = time.perf_counter() - start
+    launches = {"vtrace": vtrace_kernel.launches,
+                "nstep": nstep_kernel.launches}
+    if state.step != SAC_STEPS:
+        raise RuntimeError(f"{name}: trained {state.step} steps, want "
+                           f"{SAC_STEPS}")
+    if learner.optimizer.count != state.step or len(moves) != state.step:
+        raise RuntimeError(
+            f"{name}: {learner.optimizer.count} optimizer updates and "
+            f"{len(moves)} polyak moves in {state.step} steps, want one each "
+            "a step")
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"{name}: non-finite metrics: {bad}")
+    bound = 20.0 / learner.config.entropy_cost_adjustment_speed
+    entropy_cost = float(learner.entropy_cost.detach())
+    if not -bound <= entropy_cost <= bound:
+        raise RuntimeError(f"{name}: entropy-cost parameter {entropy_cost} "
+                           f"outside its clip +-{bound}")
+    tensors = learner.parameters() + learner.state_tensors(state)
+    off_card = [t.device for t in tensors if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
+    replay_mb = sum(t.numel() * t.element_size() for t in
+                    pytree.tree_leaves(state.replay.buffer)) / 1e6
+    print(f"{name} train: warmup + {state.step} steps in {wall_s:.3f} s "
+          f"including setup; "
+          f"{learner.optimizer.count} optimizer updates, {len(moves)} polyak "
+          f"moves; alpha {float(metrics['policy/entropy_cost']):.6f} "
+          f"(parameter {entropy_cost:.6f}, clip +-{bound}); hand-kernel "
+          f"launches {launches}; losses/total="
+          f"{float(metrics['losses/total']):.6f}; {len(tensors)} tensors on "
+          f"cuda; replay {state.replay.num_inserted} unrolls, "
+          f"{replay_mb:.1f} MB")
+    check_sac_loss_against_cpu(learner, state, name)
+
+    # A step is one rollout + insert and one train batch.
+    state, step_s, (insert_s, batch_s) = time_train_steps(
+        state, learner.warmup_step,
+        lambda s: learner.train_on_batch(s)[0], SAC_TIMED_STEPS)
+    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
+          f"{learner.frames_per_step / step_s:.1f} env frames/s "
+          f"(num_envs={path.envs}, {path.rollout} steps a rollout, batch "
+          f"{learner.config.batch_size}, {path.net})")
+    print(f"{name} per step: rollout + insert {insert_s * 1e3:.3f} ms, train "
+          f"batch (sample, loss, backward, clip, Adam, polyak) "
+          f"{batch_s * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, name)
+    _print_path_end(name, start)
+    return launches
+
+
+def check_sac_loss_against_cpu(learner, state, name):
+    """The SAC loss, its metrics and its gradients on the card against the
+    same code on the CPU, on a batch sampled from the run's replay, with the
+    loss's noise injected and TF32 off on the card."""
+    import copy
+
+    from seed_rl_torch.agents import sac
+
+    config = learner.config
+    _, _, items = learner.replay.sample(
+        state.replay, learner.generator, SAC_CHECK_BATCH, 0)
+    batch = sac._time_major(
+        (items.prev_actions, items.env_outputs, items.agent_actions))
+    dist = learner.agent.distribution
+    width = (dist.param_size // 2 if dist.reparametrizable
+             else dist.param_size)
+    g = torch.Generator().manual_seed(0)
+    steps = config.unroll_length
+    noise = sac.SACNoise(*(
+        torch.randn((t, SAC_CHECK_BATCH, width), generator=g)
+        for t in (steps, steps, steps + 1, steps + 1)))
+    results = []
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in (learner.device, torch.device("cpu")):
+            agent, target = learner.agent, learner.target_agent
+            entropy_cost = learner.entropy_cost
+            if device.type == "cpu":
+                agent, target = copy.deepcopy((agent, target))
+                for a in (agent, target):
+                    a.net.to(device)
+                    if a.normalize_observations:
+                        a.obs_norm = pytree.tree_map(
+                            lambda t: t.to(device), a.obs_norm)
+                entropy_cost = torch.nn.Parameter(entropy_cost.detach().cpu())
+            loss, metrics = sac.compute_loss(
+                config, agent, target, entropy_cost,
+                *pytree.tree_map(lambda t: t.to(device),
+                                 (items.agent_state,) + batch),
+                noise=pytree.tree_map(lambda t: t.to(device), noise))
+            grads = torch.autograd.grad(
+                loss, list(agent.net.parameters()) + [entropy_cost])
+            results.append((metrics, grads))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32[0]
+        torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    (metrics, grads), (want_metrics, want_grads) = results
+    err = 0.0
+    for k, want in want_metrics.items():
+        torch.testing.assert_close(metrics[k].cpu(), want, **SAC_TOL, msg=k)
+    for got, want in zip(grads, want_grads):
+        torch.testing.assert_close(got.cpu(), want, **SAC_GRAD_TOL)
+        err = max(err, float((got.cpu() - want).abs().max()))
+    print(f"{name}: loss and {len(want_metrics)} metrics (tol {SAC_TOL}) "
+          f"and {len(grads)} gradients (tol {SAC_GRAD_TOL}, max|err|="
+          f"{err:.3e}) on the card match the CPU on a batch of "
+          f"{SAC_CHECK_BATCH} sampled from the run's replay (TF32 off)")
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -926,9 +1124,11 @@ def main():
     nstep_launches["synthetic_atari"], err = run_r2d2(smi, "synthetic_atari")
     nstep_err = max(nstep_err, err)
     ppo_launches = {name: run_ppo(smi, name) for name in PPO_PATHS}
+    sac_launches = {name: run_sac(smi, name) for name in SAC_PATHS}
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
-          f"and per train batch); PPO paths: {ppo_launches}")
+          f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "
+          f"{sac_launches}")
 
     kernels = []
     for name, replaces, launches, err, times, extra in (

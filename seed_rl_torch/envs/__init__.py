@@ -6,13 +6,17 @@ from seed_rl_torch.envs.core import (  # noqa: F401
     TensorSpec,
     TimeLimit,
 )
-from seed_rl_torch.envs.catch import CatchEnv  # noqa: F401
+from seed_rl_torch.envs.catch import (  # noqa: F401
+    CatchEnv,
+    ContinuousCatchEnv,
+)
 from seed_rl_torch.envs.spaces import Box, Discrete  # noqa: F401
 from seed_rl_torch.envs.synthetic import (  # noqa: F401
     SyntheticAtariEnv,
     SyntheticDmLabEnv,
 )
 from seed_rl_torch.envs.toy import (  # noqa: F401
+    BitFlippingEnv,
     DiscreteMatchEnv,
     ToyEnv,
     ToyMemoryEnv,

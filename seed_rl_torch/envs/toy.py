@@ -1,7 +1,6 @@
 """Toy tensor environments for algorithm sanity tests.
 
-Port of ``seed_rl_tpu/envs/toy.py`` (``BitFlippingEnv`` waits for the SAC
-slice):
+Port of ``seed_rl_tpu/envs/toy.py``:
 - ``ToyEnv``: observe a random target vector; the reward is the negative
   squared distance between the action and the *previous* observation's
   target.
@@ -9,6 +8,9 @@ slice):
   steps and must be reproduced from memory afterwards.
 - ``DiscreteMatchEnv``: observe a one-hot target action, be rewarded 1 for
   playing it (the R2D2 test env).
+- ``BitFlippingEnv``: goal-conditioned bit flipping (the HER test bed,
+  arXiv:1707.01495) with dict observations ``{achieved_goal, desired_goal,
+  observation}``.
 
 The dynamics match the JAX package given the same targets; the random
 streams differ (``torch.Generator`` vs ``jax.random``).
@@ -20,6 +22,12 @@ import torch
 
 from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
 from seed_rl_torch.envs.spaces import Box, Discrete
+
+
+def _one_hot(index, n):
+    """f32 one-hot rows of ``index`` (int[B]); an index >= n gives zeros."""
+    return (index[:, None].long()
+            == torch.arange(n, device=index.device)).to(torch.float32)
 
 
 def _uniform(shape, generator):
@@ -171,6 +179,76 @@ class DiscreteMatchEnv(TensorEnv):
             state=_MatchState(t=t, target=target),
             observation=self._obs(target),
             reward=reward,
+            terminated=terminated,
+            abandoned=torch.zeros_like(terminated),
+        )
+
+
+class _BitFlippingState(NamedTuple):
+    bits: torch.Tensor  # f32[B, n_bits]
+    goal: torch.Tensor  # f32[B, n_bits]
+    t: torch.Tensor  # i32[B]
+
+
+class BitFlippingEnv(TensorEnv):
+    """Goal-conditioned bit flipping; dict observations for HER.
+
+    Action ``i < n_bits`` flips bit i, action ``n_bits`` is a no-op. The
+    bits and the goal of a fresh episode are fair coin flips drawn from the
+    ``BatchedEnv`` generator.
+    """
+
+    def __init__(self, n_bits: int = 10, horizon: int = 20):
+        self.n_bits = n_bits
+        self.horizon = horizon
+        self._action_space = Discrete(n_bits + 1)
+
+    def observation_spec(self):
+        return {
+            "achieved_goal": TensorSpec((self.n_bits,), torch.float32),
+            "desired_goal": TensorSpec((self.n_bits,), torch.float32),
+            "observation": TensorSpec((self.horizon + 1,), torch.float32),
+        }
+
+    @property
+    def action_space(self):
+        return self._action_space
+
+    def _obs(self, state):
+        return {
+            "achieved_goal": state.bits,
+            "desired_goal": state.goal,
+            "observation": _one_hot(state.t, self.horizon + 1),
+        }
+
+    @staticmethod
+    def compute_reward(achieved_goal, desired_goal):
+        """clip(-#mismatched bits, -1, 0); HER relabels with it too."""
+        mismatches = torch.sum((achieved_goal != desired_goal).to(
+            torch.float32), dim=-1)
+        return torch.clamp(-mismatches, -1.0, 0.0)
+
+    def _coin_flips(self, num_envs, generator):
+        return (torch.rand((num_envs, self.n_bits), generator=generator,
+                           device=generator.device) < 0.5).to(torch.float32)
+
+    def reset(self, num_envs, generator):
+        bits = self._coin_flips(num_envs, generator)
+        goal = self._coin_flips(num_envs, generator)
+        t = torch.zeros(num_envs, dtype=torch.int32, device=bits.device)
+        state = _BitFlippingState(bits=bits, goal=goal, t=t)
+        return state, self._obs(state)
+
+    def step(self, state, action, generator):
+        flip = _one_hot(action, self.n_bits)  # zeros for the no-op
+        bits = torch.abs(state.bits - flip)
+        t = state.t + 1
+        new_state = _BitFlippingState(bits=bits, goal=state.goal, t=t)
+        terminated = t >= self.horizon
+        return StepResult(
+            state=new_state,
+            observation=self._obs(new_state),
+            reward=self.compute_reward(bits, state.goal),
             terminated=terminated,
             abandoned=torch.zeros_like(terminated),
         )

@@ -9,3 +9,8 @@ from seed_rl_torch.models.atari import (  # noqa: F401
     DuelingLSTMDQNNet,
 )
 from seed_rl_torch.models.resnets import ImpalaDeep  # noqa: F401
+from seed_rl_torch.models.sac_nets import (  # noqa: F401
+    ActorCriticLSTM,
+    ActorCriticMLP,
+    VisualActorCritic,
+)

@@ -27,7 +27,13 @@ named as in ``VectorDuelingDQNNet``) and ``ImpalaDeep``
 family's ``ContinuousControlNet`` (``{shared,policy,value}_torso/Dense_i``
 and ``LayerNorm_i`` -> ``*.layers.i`` and ``*.norms.i``, flax's LayerNorm
 ``scale`` -> ``weight``; ``lstm_i`` -> ``lstm.cells.i``; the free log-std
-and the observation-correction affine as they are).
+and the observation-correction affine as they are), and the SAC nets:
+``ActorCriticMLP`` and ``VisualActorCritic`` (``actor`` / ``v`` / ``q_i``,
+each ``Dense_k`` -> ``actor`` / ``v`` / ``q.i`` ``.layers.k``; the visual
+net's torso as ``AtariPolicyNet``'s) and ``ActorCriticLSTM`` (per net
+``pre_mlp``, ``ff_mlp`` and ``post_mlp`` as MLPs, and the LSTM cells one
+level deeper under ``nn.scan``'s wrapper: ``lstm/core/lstm_i`` ->
+``core.cells.i``).
 """
 
 from typing import Dict, Tuple
@@ -42,6 +48,11 @@ from seed_rl_torch.models.atari import AtariPolicyNet, DuelingLSTMDQNNet
 from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet
 from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
 from seed_rl_torch.models.resnets import ImpalaDeep
+from seed_rl_torch.models.sac_nets import (
+    ActorCriticLSTM,
+    ActorCriticMLP,
+    VisualActorCritic,
+)
 
 _GATES = "ifgo"
 
@@ -208,6 +219,36 @@ def continuous_control_net_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _sac_heads(p, convert) -> Dict[str, torch.Tensor]:
+    """``actor``, ``v`` and ``q_0, q_1, ...``, each through ``convert``."""
+    out = {**convert(p["actor"], "actor."), **convert(p["v"], "v.")}
+    for i, q in enumerate(_indexed(p, "q_")):
+        out.update(convert(q, f"q.{i}."))
+    return out
+
+
+def actor_critic_mlp_state_dict(params) -> Dict[str, torch.Tensor]:
+    return _sac_heads(_unwrap(params), _mlp_torso)
+
+
+def visual_actor_critic_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    return {**_atari_torso(p["torso"]), **_sac_heads(p, _mlp_torso)}
+
+
+def _lstm_with_ff_branch(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    for mlp in ("pre_mlp", "ff_mlp", "post_mlp"):
+        out.update(_mlp_torso(tree[mlp], f"{prefix}{mlp}."))
+    for i, cell in enumerate(_indexed(tree["lstm"]["core"], "lstm_")):
+        out.update(_lstm_cell(cell, f"{prefix}core.cells.{i}."))
+    return out
+
+
+def actor_critic_lstm_state_dict(params) -> Dict[str, torch.Tensor]:
+    return _sac_heads(_unwrap(params), _lstm_with_ff_branch)
+
+
 def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``net``'s type built from a flax tree."""
     if isinstance(net, MLPAndLSTM):
@@ -224,6 +265,12 @@ def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
         return impala_deep_state_dict(params)
     if isinstance(net, ContinuousControlNet):
         return continuous_control_net_state_dict(params)
+    if isinstance(net, ActorCriticMLP):
+        return actor_critic_mlp_state_dict(params)
+    if isinstance(net, VisualActorCritic):
+        return visual_actor_critic_state_dict(params)
+    if isinstance(net, ActorCriticLSTM):
+        return actor_critic_lstm_state_dict(params)
     raise TypeError(f"no flax converter for {type(net).__name__}")
 
 

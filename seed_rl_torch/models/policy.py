@@ -16,7 +16,6 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.utils._pytree as pytree
 
 from seed_rl_torch.device import resolve_device
 from seed_rl_torch.models.core import (
@@ -25,11 +24,13 @@ from seed_rl_torch.models.core import (
     dense,
     lstm_initial_state,
 )
+from seed_rl_torch.utils import tree
 
 
 def _flatten_observation(observation, batch_dims: int = 1) -> torch.Tensor:
-    """Concatenate a (possibly dict) observation into a flat f32 vector."""
-    leaves = pytree.tree_leaves(observation)
+    """Concatenate a (possibly dict) observation into a flat f32 vector,
+    dict keys in sorted order as ``jax.tree.leaves`` takes them."""
+    leaves = tree.sorted_leaves(observation)
     batch_shape = tuple(leaves[0].shape[:batch_dims])
     flat = [
         leaf.to(torch.float32).reshape(batch_shape + (-1,))

@@ -1,11 +1,13 @@
-"""Streaming observation normalization (V-trace style).
+"""Streaming observation normalization (V-trace and SAC).
 
 Port of ``seed_rl_tpu/ops/normalizer.py``: element-wise mean/std tracked
 through sum / sum-of-squares / count accumulators; normalization is
 ``clip((x - mean) / (std + eps), clip_range)`` with the statistics outside
-the gradient. ``agent.py::NormalizingObservationsAgent`` applies it to
-``env_output.observation`` before the network sees it, and the learner
-folds the statistics once per training step.
+the gradient. ``agent.py::NormalizingObservationsAgent`` and
+``agents/sac.py::SACAgent`` apply it to ``env_output.observation`` before
+the network sees it, and the learners fold the statistics once per
+training step. A dict observation is concatenated along its last axis in
+sorted key order, as ``jax.tree.leaves`` orders it.
 
 The JAX package's ``axis_name`` (increments summed over a mesh axis) waits
 for scale-out; one device sees the whole batch.
@@ -15,6 +17,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+
+from seed_rl_torch.utils import tree
 
 
 class NormalizerState(NamedTuple):
@@ -60,20 +64,32 @@ def normalize(
 
 
 def _concat(observation) -> Tuple[torch.Tensor, list, pytree.TreeSpec]:
-    leaves, spec = pytree.tree_flatten(observation)
+    """The leaves concatenated in ``jax.tree.leaves`` order (dict keys
+    sorted), their widths, and the spec of the sorted tree."""
+    leaves, spec = pytree.tree_flatten(tree.sorted_dicts(observation))
     widths = [leaf.shape[-1] for leaf in leaves]
     concat = torch.cat([leaf.to(torch.float32) for leaf in leaves], dim=-1)
     return concat, widths, spec
 
 
+def observation_width(spec) -> int:
+    """The statistics' size for observations of ``spec`` (a ``TensorSpec``
+    or a dict of them): the sum of the leaves' last dimensions, every other
+    axis being folded into the batch."""
+    if isinstance(spec, dict):
+        return sum(observation_width(s) for s in spec.values())
+    return int(spec.shape[-1])
+
+
 def normalize_observation(state: NormalizerState, observation, eps=0.001,
                           clip_range=(-5.0, 5.0)):
     """Normalizes a (possibly dict) observation leaf-wise along one concat:
-    the statistics are tracked over the concatenation of all leaves."""
+    the statistics are tracked over the concatenation of all leaves, in
+    sorted key order; the result keeps the caller's layout."""
     concat, widths, spec = _concat(observation)
     normalized = normalize(state, concat, eps, clip_range)
-    return pytree.tree_unflatten(
-        list(torch.split(normalized, widths, dim=-1)), spec)
+    return tree.in_layout_of(pytree.tree_unflatten(
+        list(torch.split(normalized, widths, dim=-1)), spec), observation)
 
 
 def update_from_observation(state: NormalizerState,

@@ -1,10 +1,14 @@
-"""Prioritized replay on the device.
+"""Prioritized and hindsight experience replay on the device.
 
-Port of ``seed_rl_tpu/replay.py::PrioritizedReplay``: FIFO wrap-around
-insertion, priority^exp categorical sampling over the filled prefix,
-importance weights ``((1/limit)/p[i])^beta`` normalised by their max, and
-``update_priorities``. ``HindsightExperienceReplay`` waits for the SAC
-slice.
+Port of ``seed_rl_tpu/replay.py``:
+- ``PrioritizedReplay``: FIFO wrap-around insertion, priority^exp
+  categorical sampling over the filled prefix, importance weights
+  ``((1/limit)/p[i])^beta`` normalised by their max, and
+  ``update_priorities``;
+- ``HindsightExperienceReplay``: 'future'-strategy goal substitution with
+  probability p inside each sampled window, rewards recomputed with
+  ``compute_reward_fn``, and a random ``unroll_length + 1``-step window cut
+  from each sampled item.
 
 Differences from the JAX package, none of them in the results:
 - The buffer is updated in place: ``insert`` and ``update_priorities``
@@ -18,15 +22,15 @@ Differences from the JAX package, none of them in the results:
   flattens multi-axis items to dodge a TPU layout problem).
 - ``sample`` draws with ``torch.multinomial`` from the caller's
   ``torch.Generator``, or takes injected ``indices`` (the tests feed the
-  JAX draw).
+  JAX draw); the hindsight replay's three draws can be injected too.
 """
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
-from seed_rl_torch.utils import debug_asserts
+from seed_rl_torch.utils import debug_asserts, tree
 
 
 class ReplayState(NamedTuple):
@@ -86,8 +90,10 @@ class PrioritizedReplay:
         spans = [(start, 0, first)]
         if first < batch:
             spans.append((0, first, batch - first))
-        leaves = pytree.tree_leaves(state.buffer) + [state.priorities]
-        new = pytree.tree_leaves(values) + [priorities]
+        # Sorted dict keys on both sides: a dict built in another key order
+        # still lands leaf by leaf.
+        leaves = tree.sorted_leaves(state.buffer) + [state.priorities]
+        new = tree.sorted_leaves(values) + [priorities]
         if len(leaves) != len(new):
             raise ValueError("inserted items do not match the buffer layout")
         with torch.no_grad():
@@ -153,3 +159,111 @@ class PrioritizedReplay:
         with torch.no_grad():
             state.priorities[indices.long()] = priorities.to(torch.float32)
         return state
+
+
+class HERDraws(NamedTuple):
+    """The hindsight replay's draws for a batch of ``n`` windows of ``H``
+    steps, each in place of the sampler's own."""
+
+    goal_uniform: Optional[torch.Tensor] = None  # f32[n, H] in [0, 1)
+    mask_uniform: Optional[torch.Tensor] = None  # f32[n, H] in [0, 1)
+    window_start: Optional[torch.Tensor] = None  # int[n] in [0, H - unroll)
+
+
+class HindsightExperienceReplay(PrioritizedReplay):
+    """Future-strategy HER over windows with dict observations.
+
+    Items are structures with ``env_outputs.observation`` dicts holding
+    ``achieved_goal`` and ``desired_goal``, stored item-major ``[H, ...]``
+    per slot; ``sample`` relabels goals and cuts ``unroll_length + 1``-step
+    unrolls out of the windows. The item's ``agent_state`` is kept as
+    stored: the state before the window's first step, whatever step the cut
+    starts at, as in the JAX package.
+    """
+
+    def __init__(
+        self,
+        size: int,
+        importance_sampling_exponent: float,
+        compute_reward_fn: Callable,
+        unroll_length: int,
+        substitution_probability: float,
+    ):
+        super().__init__(size, importance_sampling_exponent)
+        self.compute_reward_fn = compute_reward_fn
+        self.unroll_length = unroll_length
+        self.substitution_probability = substitution_probability
+
+    def sample(
+        self,
+        state: ReplayState,
+        generator: Optional[torch.Generator],
+        num_samples: int,
+        priority_exp: float,
+        indices: Optional[torch.Tensor] = None,
+        draws: HERDraws = HERDraws(),
+    ):
+        indices, weights, sampled = super().sample(
+            state, generator, num_samples, priority_exp, indices=indices)
+        env_outputs = sampled.env_outputs
+        observation = dict(env_outputs.observation)
+        achieved = observation["achieved_goal"]
+        desired = observation["desired_goal"]
+        batch_size, horizon = achieved.shape[:2]
+        if horizon < self.unroll_length + 1:
+            raise ValueError(f"windows of {horizon} steps cannot hold an "
+                             f"unroll of {self.unroll_length} + 1")
+        device = achieved.device
+
+        def goal_reward(desired_goal):
+            # reward[:, t] is for the transition t-1 -> t; t = 0 holds a
+            # placeholder 0.
+            reward = self.compute_reward_fn(achieved[:, 1:],
+                                            desired_goal[:, :-1])
+            return torch.cat([torch.zeros_like(reward[:, :1]), reward], dim=1)
+
+        def uniform(given):
+            if given is not None:
+                return given.to(device=device, dtype=torch.float32)
+            return torch.rand((batch_size, horizon), generator=generator,
+                              device=device)
+
+        old_goal_reward = goal_reward(desired)
+        # Future-strategy goal index: uniform in (t, horizon).
+        low = torch.clamp(torch.arange(horizon, device=device) + 1,
+                          max=horizon - 1)
+        goal_index = (low + uniform(draws.goal_uniform) * (horizon - low)).to(
+            torch.int64).clamp(0, horizon - 1)
+        substituted = torch.gather(
+            achieved, 1,
+            goal_index[..., None].expand(-1, -1, achieved.shape[-1]))
+        not_done = (~env_outputs.done).to(desired.dtype)
+        # No substitution at an episode's last step: no next state is
+        # stored for it.
+        mask = ((uniform(draws.mask_uniform) < self.substitution_probability)
+                .to(desired.dtype) * not_done)[..., None]
+        observation["desired_goal"] = mask * substituted + (1 - mask) * desired
+        reward = env_outputs.reward + (
+            goal_reward(observation["desired_goal"]) - old_goal_reward
+        ) * (~env_outputs.done).to(torch.float32)
+        sampled = sampled._replace(env_outputs=env_outputs._replace(
+            observation=observation, reward=reward))
+
+        start = draws.window_start
+        if start is None:
+            start = torch.randint(0, horizon - self.unroll_length,
+                                  (batch_size,), generator=generator,
+                                  device=device)
+        window = (start.to(device=device, dtype=torch.int64)[:, None]
+                  + torch.arange(self.unroll_length + 1, device=device))
+        rows = torch.arange(batch_size, device=device)[:, None]
+
+        def cut(t):
+            if t.dim() < 2 or t.shape[1] != horizon:
+                return t
+            return t[rows, window]
+
+        agent_state = sampled.agent_state
+        sampled = pytree.tree_map(cut, sampled)._replace(
+            agent_state=agent_state)
+        return indices, weights, sampled

@@ -18,15 +18,24 @@ runs on the CPU):
   ``ContinuousControlNet`` behind observation normalization (stateless, so
   ``split`` by default), on ``discrete_match`` ``MLPAndLSTM``, on ``catch``
   / ``synthetic_atari`` ``AtariPolicyNet`` with LSTM 256 (recurrent, so
-  ``shuffle`` by default); PopArt on the value targets throughout.
+  ``shuffle`` by default); PopArt on the value targets throughout;
+- ``--agent=sac`` (the fused on-device learner, uniform replay, polyak
+  targets): on ``toy`` / ``toy_memory`` / ``bit_flipping``
+  ``ActorCriticMLP``, or ``ActorCriticLSTM`` with ``--sac_net=lstm``; on
+  ``catch`` / ``catch_continuous`` ``VisualActorCritic`` over frames;
+  ``--her_window_length`` turns on HER (``bit_flipping`` only), and
+  ``--normalize_observations`` works on the vector envs.
 Other agent/env pairs, run modes, checkpoints (and PPO's action points:
 checkpoints, saved models, snapshots), observation normalization outside
-V-trace on the toy envs, host-env replay ratios and more than one replica
-are not ported yet and raise ``NotImplementedError`` rather than being
-ignored. Where the JAX CLI accepts a flag and ignores it, this one raises
-``ValueError``: ``--conv_net=atari``, ``--conv_net=impala_deep`` and
-``--remat_torso`` where no conv net reads them, and a ``--lambda_`` other
-than its default under ``--agent=vtrace``.
+V-trace and SAC or on frames, host-env replay ratios and more than one
+replica are not ported yet and raise ``NotImplementedError`` rather than
+being ignored. Where the JAX CLI accepts a flag and ignores it, or takes
+one it cannot use, this one raises ``ValueError``: ``--conv_net=atari``,
+``--conv_net=impala_deep`` and ``--remat_torso`` where no conv net reads
+them, a ``--lambda_`` other than its default under ``--agent=vtrace``,
+``--train_batches_per_step``, ``--update_target_every_n_step`` and
+``--sac_net=lstm`` on frames under ``--agent=sac``, and HER on any env but
+``bit_flipping`` or with windows shorter than ``unroll_length + 1``.
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -40,6 +49,9 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=ppo --env=toy \
       --num_envs=128 --unroll_length=16 --epochs_per_step=10 \
       --batches_per_step=32 --learning_rate=3e-4 --clip_norm=0.5
+  python -m seed_rl_torch.train --agent=sac --env=bit_flipping \
+      --sac_net=lstm --her_window_length=16 --unroll_length=2 \
+      --num_envs=256 --batch_size=256 --replay_buffer_size=4096
 """
 
 import argparse
@@ -65,10 +77,15 @@ PORTED = {
     "r2d2": ("discrete_match", "catch", "synthetic_atari"),
     "ppo": ("toy", "toy_memory", "discrete_match", "catch",
             "synthetic_atari"),
+    "sac": ("toy", "toy_memory", "bit_flipping", "catch",
+            "catch_continuous"),
 }
 # Envs whose observations are frames, for the conv nets.
-PIXEL_ENVS = ("catch", "synthetic_atari")
+PIXEL_ENVS = ("catch", "catch_continuous", "synthetic_atari")
 LAMBDA_DEFAULT = 0.95
+# The JAX CLI's defaults of flags its SAC branch never reads.
+TRAIN_BATCHES_PER_STEP_DEFAULT = 1
+UPDATE_TARGET_EVERY_N_STEP_DEFAULT = 2500
 
 
 def parse_args(argv=None):
@@ -97,7 +114,7 @@ def parse_args(argv=None):
     p.add_argument("--log_every_steps", type=int, default=20)
     p.add_argument("--normalize_observations", action="store_true",
                    help="streaming mean/std observation normalization "
-                        "(--agent=vtrace on toy/toy_memory)")
+                        "(--agent=vtrace or sac, on the vector envs)")
     p.add_argument("--num_replicas", type=int, default=0,
                    help="0 = all local devices; more than one is not "
                         "ported yet")
@@ -130,10 +147,31 @@ def parse_args(argv=None):
     p.add_argument("--replay_ratio", type=float, default=None,
                    help="host-env off-policy agents only (not ported yet)")
     p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--update_target_every_n_step", type=int, default=2500)
-    p.add_argument("--train_batches_per_step", type=int, default=1,
+    p.add_argument("--update_target_every_n_step", type=int,
+                   default=UPDATE_TARGET_EVERY_N_STEP_DEFAULT,
+                   help="R2D2's hard target sync, in train steps")
+    p.add_argument("--train_batches_per_step", type=int,
+                   default=TRAIN_BATCHES_PER_STEP_DEFAULT,
                    help="R2D2 optimization batches per rollout cycle")
     p.add_argument("--num_eval_envs", type=int, default=0)
+    # SAC.
+    p.add_argument("--her_window_length", type=int, default=0,
+                   help="HER window (rollout unroll) length; 0 = no HER")
+    p.add_argument("--polyak", type=float, default=0.9)
+    p.add_argument("--sac_entropy_cost", type=float, default=0.01,
+                   help="initial entropy cost alpha")
+    p.add_argument("--target_entropy", default=None,
+                   help="if set, alpha is adjusted toward this policy "
+                        "entropy; 'auto' = -dim of the action space")
+    p.add_argument("--entropy_cost_adjustment_speed", type=float,
+                   default=1.0)
+    p.add_argument("--bootstrap_net", default="v", choices=["v", "q"],
+                   help="bootstrap from the target V, or the target min-Q "
+                        "of a fresh action plus alpha * entropy")
+    p.add_argument("--sac_net", default="mlp", choices=["mlp", "lstm"],
+                   help="mlp = ActorCriticMLP; lstm = ActorCriticLSTM (LSTM "
+                        "+ feed-forward branch); frames always take "
+                        "VisualActorCritic")
     # The on-policy family (--agent=ppo).
     p.add_argument("--lambda_", type=float, default=LAMBDA_DEFAULT,
                    help="GAE / V-trace lambda of --advantage_estimator "
@@ -180,7 +218,7 @@ def _refuse_unported(args):
     if args.init_checkpoint is not None:
         refuse("--init_checkpoint")
     if args.normalize_observations and (
-            args.agent != "vtrace" or args.env in PIXEL_ENVS):
+            args.agent not in ("vtrace", "sac") or args.env in PIXEL_ENVS):
         refuse(f"--normalize_observations with --agent={args.agent} "
                f"--env={args.env}")
     for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
@@ -201,6 +239,30 @@ def _refuse_unported(args):
     if args.agent == "vtrace" and args.lambda_ != LAMBDA_DEFAULT:
         raise ValueError("--lambda_ is read by --agent=ppo only; V-trace "
                          "keeps lambda 1 (the JAX CLI ignores the flag)")
+    if args.agent == "sac":
+        _refuse_sac_flags(args)
+
+
+def _refuse_sac_flags(args):
+    for flag, default in (
+            ("train_batches_per_step", TRAIN_BATCHES_PER_STEP_DEFAULT),
+            ("update_target_every_n_step",
+             UPDATE_TARGET_EVERY_N_STEP_DEFAULT)):
+        if getattr(args, flag) != default:
+            raise ValueError(
+                f"--{flag} is not read under --agent=sac: the JAX CLI runs "
+                "one batch a step with a polyak move every batch")
+    if args.sac_net == "lstm" and args.env in PIXEL_ENVS:
+        raise ValueError("--sac_net=lstm selects nothing on frames: they "
+                         "take VisualActorCritic")
+    if args.her_window_length:
+        if args.env != "bit_flipping":
+            raise ValueError("--her_window_length (HER) needs "
+                             "--env=bit_flipping, whose reward it recomputes")
+        if args.her_window_length < args.unroll_length + 1:
+            raise ValueError(
+                f"--her_window_length={args.her_window_length} cannot hold "
+                f"an unroll of --unroll_length={args.unroll_length} + 1")
 
 
 def _refuse_replicas(args, device):
@@ -220,7 +282,9 @@ def make_env(args, device):
         "toy": envs.ToyEnv,
         "toy_memory": envs.ToyMemoryEnv,
         "discrete_match": envs.DiscreteMatchEnv,
+        "bit_flipping": envs.BitFlippingEnv,
         "catch": envs.CatchEnv,
+        "catch_continuous": envs.ContinuousCatchEnv,
         "synthetic_atari": envs.SyntheticAtariEnv,
     }[args.env]()
     return envs.BatchedEnv(env, args.num_envs, device=device, seed=0)
@@ -240,9 +304,13 @@ def main(argv=None):
     debug_asserts.enable(args.debug_asserts)
     env = make_env(args, device)
     # Linear decay over optimizer updates, the reference's PolynomialDecay
-    # with power 1: one update per V-trace step, train_batches_per_step per
-    # R2D2 step, epochs_per_step x batches_per_step per PPO step.
-    frames_per_rollout = max(1, args.num_envs * args.unroll_length)
+    # with power 1: one update per V-trace or SAC step (whose rollouts span
+    # the HER window), train_batches_per_step per R2D2 step,
+    # epochs_per_step x batches_per_step per PPO step.
+    unroll = args.unroll_length
+    if args.agent == "sac" and args.her_window_length:
+        unroll = args.her_window_length
+    frames_per_rollout = max(1, args.num_envs * unroll)
     updates = max(1, args.total_environment_frames // frames_per_rollout)
     if args.agent == "r2d2":
         updates *= max(1, args.train_batches_per_step)
@@ -264,6 +332,8 @@ def main(argv=None):
         learner, loop = _r2d2_learner(args, env, optimizer, device)
     elif args.agent == "ppo":
         learner, loop = _ppo_learner(args, env, optimizer, device)
+    elif args.agent == "sac":
+        learner, loop = _sac_learner(args, env, optimizer, device)
     else:
         learner, loop = _vtrace_learner(args, env, optimizer, device)
     state, metrics = loop(
@@ -281,6 +351,7 @@ def _vtrace_learner(args, env, optimizer, device):
     from seed_rl_torch.agent import NormalizingObservationsAgent, PolicyAgent
     from seed_rl_torch.agents import vtrace as vtrace_agent
     from seed_rl_torch.models import AtariPolicyNet, ImpalaDeep, MLPAndLSTM
+    from seed_rl_torch.ops.normalizer import observation_width
     from seed_rl_torch.rollout import RolloutEngine
 
     dist = pd.get_parametric_distribution_for_action_space(env.action_space)
@@ -304,7 +375,8 @@ def _vtrace_learner(args, env, optimizer, device):
         )
     agent = PolicyAgent(net, dist)
     if args.normalize_observations:
-        agent = NormalizingObservationsAgent(agent, math.prod(obs_shape))
+        agent = NormalizingObservationsAgent(
+            agent, observation_width(env.observation_spec()))
     config = vtrace_agent.VTraceConfig(
         discounting=args.discounting,
         entropy_cost=args.entropy_cost,
@@ -450,6 +522,61 @@ def _ppo_learner(args, env, optimizer, device):
     engine = RolloutEngine(env, agent, args.unroll_length, seed=1)
     learner = PPOLearner(engine, agent, loss, config, optimizer, seed=2)
     return learner, learner_loop
+
+
+def _sac_learner(args, env, optimizer, device):
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch.agents import sac
+    from seed_rl_torch.envs import BitFlippingEnv
+    from seed_rl_torch.models import (
+        ActorCriticLSTM,
+        ActorCriticMLP,
+        VisualActorCritic,
+    )
+    from seed_rl_torch.ops.normalizer import observation_width
+    from seed_rl_torch.rollout import RolloutEngine
+
+    space = env.action_space
+    dist = pd.get_parametric_distribution_for_action_space(space)
+    discrete = hasattr(space, "n")
+    spec = env.observation_spec()
+    net_type = (VisualActorCritic if args.env in PIXEL_ENVS
+                else ActorCriticLSTM if args.sac_net == "lstm"
+                else ActorCriticMLP)
+    net = net_type(
+        parametric_distribution_param_size=dist.param_size,
+        observation_spec=spec, n_critics=2,
+        action_dim=1 if discrete else None, seed=0, device=device)
+    agent = sac.SACAgent(net, dist, observation_width(spec)
+                         if args.normalize_observations else None)
+    target_entropy = args.target_entropy
+    if target_entropy == "auto":
+        # The standard SAC heuristic: -dim of the action space.
+        target_entropy = -float(1 if discrete else math.prod(space.shape))
+    elif target_entropy is not None:
+        target_entropy = float(target_entropy)
+    her_window = args.her_window_length or None
+    config = sac.SACConfig(
+        discounting=args.discounting,
+        entropy_cost=args.sac_entropy_cost,
+        target_entropy=target_entropy,
+        entropy_cost_adjustment_speed=args.entropy_cost_adjustment_speed,
+        bootstrap_net=args.bootstrap_net,
+        batch_size=args.batch_size,
+        replay_buffer_size=args.replay_buffer_size,
+        replay_buffer_min_size=args.replay_buffer_min_size,
+        unroll_length=args.unroll_length,
+        her_window_length=her_window,
+        polyak=args.polyak,
+    )
+    engine = RolloutEngine(env, agent, her_window or args.unroll_length,
+                           seed=1)
+    learner = sac.SACLearner(
+        engine, agent, config, optimizer,
+        compute_reward_fn=BitFlippingEnv.compute_reward if her_window
+        else None,
+        seed=2)
+    return learner, sac.learner_loop
 
 
 if __name__ == "__main__":

@@ -490,3 +490,31 @@ def test_ppo_minibatch_step_on_the_card_matches_the_cpu(cuda, kind):
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.detach().cpu(), want.detach(),
                                    rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("argv,net", [
+    (["--env=toy"], "ActorCriticMLP"),
+    (["--env=bit_flipping", "--sac_net=lstm", "--her_window_length=4",
+      "--normalize_observations"], "ActorCriticLSTM"),
+    (["--env=catch_continuous", "--bootstrap_net=q"], "VisualActorCritic"),
+])
+def test_sac_train_step_runs_on_the_card(cuda, argv, net):
+    """One SAC train step per net through the CLI, on the card by default:
+    every tensor on the card, finite metrics, one update and one polyak
+    move a step, and no hand kernel launched (SAC's path has none)."""
+    from seed_rl_torch import train
+
+    vtrace_kernel.launches = nstep_kernel.launches = 0
+    learner, state, metrics = train.main([
+        "--agent=sac", "--num_envs=16", "--unroll_length=2",
+        "--batch_size=32", "--replay_buffer_size=256",
+        "--replay_buffer_min_size=32", "--total_environment_frames=32",
+        "--steps_per_call=1", "--log_every_steps=1", *argv,
+    ])
+    assert type(learner.net).__name__ == net
+    assert state.step == 1 and state.batches == 1
+    assert learner.optimizer.count == 1
+    assert vtrace_kernel.launches == nstep_kernel.launches == 0
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    for t in learner.parameters() + learner.state_tensors(state):
+        assert t.device.type == "cuda"

@@ -3,7 +3,10 @@
 Flax parameters are initialised in JAX, carried over with
 seed_rl_torch.models.convert, and both networks see the same numpy inputs:
 one step from a random core state, and a time-major unroll with ``done``
-resets inside it. Outputs and core states agree within rtol = atol = 1e-5.
+resets inside it. Outputs and core states agree within rtol = atol = 1e-5;
+over a dict observation whose keys were inserted out of sorted order
+(flax concatenates the leaves in sorted key order), within rtol = atol =
+1e-6.
 """
 
 import numpy as np
@@ -128,6 +131,48 @@ def test_unroll_with_done_resets_matches_flax(kind, kw):
     for jleaf, tleaf in zip(jax.tree.leaves(jstate), jax.tree.leaves(
             jax.tree.map(lambda t: t.detach().numpy(), tstate))):
         np.testing.assert_allclose(tleaf, jleaf, **TOL)
+
+
+@pytest.mark.parametrize("order", [("b", "a", "c"), ("c", "b", "a")])
+def test_mlp_and_lstm_over_a_dict_out_of_key_order_matches_flax(order):
+    widths = {"a": 1, "b": 2, "c": 1}  # OBS wide in all
+    T, B = 5, 3
+    tol = dict(rtol=1e-6, atol=1e-6)
+    rng = np.random.RandomState(4)
+    eo = _env_output(rng, (T, B), done_p=0.3)
+    eo["observation"] = {k: rng.normal(size=(T, B, widths[k])).astype(
+        np.float32) for k in order}
+    jeo = JaxEnvOutput(**jax.tree.map(jnp.asarray, eo))
+    # torch's pytree keeps each dict's insertion order.
+    teo = EnvOutput(**torch.utils._pytree.tree_map(torch.from_numpy, eo))
+    assert tuple(teo.observation) == order
+    jnet = JaxMLPAndLSTM(PARAMS, mlp_sizes=(16,), lstm_sizes=(8,))
+    tnet = MLPAndLSTM(PARAMS, OBS, mlp_sizes=(16,), lstm_sizes=(8,),
+                      device="cpu")
+    params = jax.tree.map(np.asarray, jnet.init(
+        jax.random.PRNGKey(1), jnp.zeros((B, 3)),
+        jax.tree.map(lambda x: x[0], jeo), jnet.initial_state(B)))
+    tnet.load_state_dict(convert.state_dict_for(tnet, params), strict=True)
+    state = _random_state(tnet.lstm_sizes, B, rng)
+    jstate = jax.tree.map(jnp.asarray, state)
+    tstate = jax.tree.map(torch.from_numpy, state)
+    (jp, jb), _ = jnet.apply(params, jnp.zeros((B, 3)),
+                             jax.tree.map(lambda x: x[0], jeo), jstate)
+    (tp, tb), _ = tnet(torch.zeros(B, 3),
+                       torch.utils._pytree.tree_map(lambda x: x[0], teo),
+                       tstate)
+    np.testing.assert_allclose(tp.detach().numpy(), jp, **tol)
+    np.testing.assert_allclose(tb.detach().numpy(), jb, **tol)
+    jagent = JaxPolicyAgent(jnet, jpd.NormalTanhDistribution(3))
+    tagent = PolicyAgent(tnet, tpd.NormalTanhDistribution(3))
+    (jp, jb), jfinal = jagent.unroll(params, jnp.zeros((T, B, 3)), jeo,
+                                     jstate)
+    (tp, tb), tfinal = tagent.unroll(torch.zeros(T, B, 3), teo, tstate)
+    np.testing.assert_allclose(tp.detach().numpy(), jp, **tol)
+    np.testing.assert_allclose(tb.detach().numpy(), jb, **tol)
+    for jleaf, tleaf in zip(jax.tree.leaves(jfinal),
+                            jax.tree.leaves(tfinal)):
+        np.testing.assert_allclose(tleaf.detach().numpy(), jleaf, **tol)
 
 
 def test_unroll_equals_stepping_forward():

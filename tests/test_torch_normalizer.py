@@ -1,10 +1,15 @@
 """Observation normalization in seed_rl_torch against the JAX package
-(mirroring tests/test_normalizer.py:18-118; its SAC case waits for SAC).
+(mirroring tests/test_normalizer.py:18-118; its SAC case is in
+tests/test_torch_sac.py).
 
 - ``ops/normalizer.py``: the statistics after seeded batches, and the
   normalized (clipped) outputs, agree with JAX within rtol 1e-5 / atol
   1e-6 and with the numpy ground truth; multi-rank batches, the initial
-  clip, the dict concat-and-split and the stop-gradient.
+  clip, the dict concat-and-split and the stop-gradient; dicts whose keys
+  were inserted out of sorted order agree with JAX (which concatenates in
+  sorted key order) within rtol = atol = 1e-6 and come back in the
+  caller's key order; the statistics' width is the sum of the leaves'
+  last dimensions, as JAX sizes it.
 - One V-trace step with ``NormalizingObservationsAgent`` on the toy env:
   the JAX learner's parameters and statistics (folded from an earlier
   unroll) go through the JAX and the port's ``compute_loss`` / ``update``
@@ -125,6 +130,50 @@ def test_normalize_observation_dict_concat_split_matches_jax():
     _close(normalizer.update_from_observation(
         state, {k: torch.from_numpy(v) for k, v in obs.items()}),
         jnorm.update_from_observation(jstate, obs))
+
+
+@pytest.mark.parametrize("order", [("b", "a"), ("c", "a", "b")])
+def test_dict_observation_out_of_key_order_matches_jax(order):
+    widths = {"a": 2, "b": 3, "c": 1}
+    tol = dict(rtol=1e-6, atol=1e-6)
+    rng = np.random.RandomState(2)
+
+    def observation(lead):
+        return {k: (rng.normal(size=lead + (widths[k],)) * (1 + i)).astype(
+            np.float32) for i, k in enumerate(order)}
+
+    width = sum(widths[k] for k in order)
+    state, jstate = normalizer.init(width), jnorm.init(width)
+    for _ in range(3):
+        obs = observation((4, 5))
+        state = normalizer.update_from_observation(
+            state, {k: torch.from_numpy(v) for k, v in obs.items()})
+        jstate = jnorm.update_from_observation(
+            jstate, {k: jnp.asarray(v) for k, v in obs.items()})
+        _close(state, jstate, tol)
+    obs = observation((6,))
+    got = normalizer.normalize_observation(
+        state, {k: torch.from_numpy(v) for k, v in obs.items()})
+    assert tuple(got) == order  # the caller's layout
+    want = jnorm.normalize_observation(
+        jstate, {k: jnp.asarray(v) for k, v in obs.items()})
+    for k in order:
+        assert got[k].shape == (6, widths[k])
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   **tol, err_msg=k)
+
+
+def test_normalizer_width_is_the_sum_of_the_leaves_last_dims():
+    from seed_rl_torch.envs import BitFlippingEnv, CatchEnv, ToyEnv
+
+    spec = BitFlippingEnv(n_bits=10, horizon=20).observation_spec()
+    assert normalizer.observation_width(spec) == 10 + 10 + 21
+    obs = {k: jnp.zeros((7, 3) + s.shape) for k, s in spec.items()}
+    assert normalizer.observation_width(spec) == jnorm._flat_width(obs)
+    assert normalizer.observation_width(ToyEnv().observation_spec()) == (
+        ToyEnv().observation_spec().shape[-1])
+    # Frames would be normalized per channel, every other axis folded.
+    assert normalizer.observation_width(CatchEnv().observation_spec()) == 1
 
 
 def test_normalizer_statistics_take_no_gradient():
