@@ -78,14 +78,51 @@ Phases, in order; any failure exits non-zero:
      observations), ActorCriticLSTM (LSTM 256, MLPs of 256, 4 nets, the
      desired goal withheld from the LSTMs), HER windows of 16 cut to
      unrolls of 2, 256 envs, batch 256, a 4096-window replay;
- 14. print the V-trace and n-step launches of each path, and the kernels
+ 14. checkpoints, logs, export and the eval and profile run modes, each
+     path through seed_rl_torch.train.main into a temporary --logdir, the
+     launch counts reset just before each call:
+     (a) V-trace on synthetic Atari frames with AtariPolicyNet at 1024 envs
+         x unroll 32 (phase 7's shape): 2 steps with a checkpoint after
+         each (--save_checkpoint_secs=0), whose file, loaded back, must
+         equal the run's final state bitwise (every tensor of the net, the
+         optimizer, the rollout, the statistics and the generators); a
+         second call on the logdir with a 4-step budget must resume at step
+         2 and train exactly 2 more, with 2 V-trace launches; the event
+         file must hold scalar records; --run_mode=eval must print
+         eval/restored_step 4 over at least --eval_episodes episodes;
+         --run_mode=profile --profile_calls=2 must write its trace (3
+         V-trace launches: a warm call and 2 traced ones); then the trained
+         agent is exported with export_policy on the card and loaded back
+         with load_policy: on the rollout's own env_output, its actions
+         must equal policy_step(deterministic=True)'s and its new state be
+         within 1e-5;
+     (b) R2D2 on discrete_match at phase 6's knobs: 2 warm-ups and 2 steps,
+         then a resume for 2 more: the replay restored (items, priorities,
+         num_inserted, cursors) must equal the saved one bitwise, no
+         warm-up may run after the restore, and the n-step launches must
+         be the inserts and batches after it (4); then --run_mode=eval with
+         the greedy step;
+     (c) PPO on the toy env at phase 10's knobs, 2 steps with
+         --num_checkpoints=2 --num_saved_models=2 --num_snapshots=2: 2
+         checkpoint saves at their marks, 2 saved models and 2 snapshots;
+         the last saved model, loaded back, must give the agent's
+         deterministic actions (its input statistics inside the program)
+         within 1e-5;
+     (d) SAC on catch_continuous with VisualActorCritic at phase 12's
+         knobs: the 16384-unroll replay of frames checkpointed and resumed,
+         checked as in (b); then --run_mode=eval with the mode action.
+     Each path prints the checkpoint's size on disk, the save and restore
+     seconds, the export and load seconds and its own seconds, beside the
+     card's name and power limit;
+ 15. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths, the n-step kernel's those of both
-     R2D2 paths. The PPO and SAC paths launch neither kernel: the PPO
+     those of all three V-trace paths and of phase 14's, the n-step
+     kernel's those of both R2D2 paths and of phase 14's. The PPO and SAC
+     paths launch neither kernel: the PPO
      advantage estimators are plain PyTorch and SAC has no recursion over
      time, as in the JAX package.
 The TF32 settings of convolutions and matrix products are printed once;
@@ -97,10 +134,14 @@ It exits non-zero and prints no result where torch sees no CUDA device, or
 where the seed_rl_torch package is absent.
 """
 
+import glob
 import json
 import math
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 from typing import NamedTuple, Tuple
@@ -282,6 +323,14 @@ SAC_STEPS, SAC_TIMED_STEPS, SAC_CHECK_BATCH = 3, 5, 32
 # absolute error of the sums, not their relative one.
 SAC_TOL = dict(rtol=1e-4, atol=1e-5)
 SAC_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+
+# Phase 14: train steps before the checkpoint, the budget of the resumed
+# call (in steps), the traced calls of --run_mode=profile, and the
+# tolerance of an exported policy's new state against the agent's (and of
+# its continuous actions; discrete ones must be equal).
+CKPT_STEPS, RESUME_STEPS, PROFILE_CALLS = 2, 4, 2
+EXPORT_TOL = 1e-5
+CKPT_EVAL_EPISODES = 32  # the CLI's default
 
 # Device time (torch.profiler, 20 launches) of each kernel's first design,
 # one thread per column walking every row in series, as this script
@@ -998,6 +1047,382 @@ def check_sac_loss_against_cpu(learner, state, name):
           f"{SAC_CHECK_BATCH} sampled from the run's replay (TF32 off)")
 
 
+class CheckpointRecorder:
+    """While a phase-14 call runs, wraps ``CheckpointManager.maybe_save``
+    and ``restore_or`` and ``export_policy``: each save's step, whether it
+    was forced, and its seconds; each restore's step and seconds, and a CPU
+    copy of the restored replay taken before training writes into it; each
+    export's seconds."""
+
+    def __enter__(self):
+        from seed_rl_torch.utils import checkpoint as ckpt
+        from seed_rl_torch.utils import export
+
+        self.saves, self.restores, self.exports = [], [], []
+        manager = ckpt.CheckpointManager
+        self._saved = (manager.maybe_save, manager.restore_or,
+                       export.export_policy)
+        maybe_save, restore_or, export_policy = self._saved
+
+        def timed_save(mgr, step, learner, state, force=False):
+            t0 = time.perf_counter()
+            if maybe_save(mgr, step, learner, state, force):
+                self.saves.append((step, force, time.perf_counter() - t0))
+                return True
+            return False
+
+        def timed_restore(mgr, learner, state):
+            t0 = time.perf_counter()
+            state = restore_or(mgr, learner, state)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            replay = getattr(state, "replay", None)
+            self.restores.append((state.step, seconds, None if replay is None
+                                  else ckpt.to_saveable(replay)))
+            return state
+
+        def timed_export(*args, **kw):
+            t0 = time.perf_counter()
+            export_policy(*args, **kw)
+            self.exports.append(time.perf_counter() - t0)
+
+        manager.maybe_save, manager.restore_or = timed_save, timed_restore
+        export.export_policy = timed_export
+        return self
+
+    def __exit__(self, *exc):
+        from seed_rl_torch.utils import checkpoint as ckpt
+        from seed_rl_torch.utils import export
+
+        manager = ckpt.CheckpointManager
+        manager.maybe_save, manager.restore_or, export.export_policy = (
+            self._saved)
+
+
+def _assert_trees_equal(got, want, what):
+    """Bitwise equality of two trees of tensors and ints; returns the
+    number of tensors compared."""
+    got_leaves, got_spec = pytree.tree_flatten(got)
+    want_leaves, want_spec = pytree.tree_flatten(want)
+    if got_spec != want_spec:
+        raise RuntimeError(f"{what}: the structures differ")
+    tensors = 0
+    for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
+        if isinstance(w, torch.Tensor):
+            tensors += 1
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise RuntimeError(f"{what}: tensor {i} differs")
+        elif g != w:
+            raise RuntimeError(f"{what}: leaf {i} is {g!r}, want {w!r}")
+    return tensors
+
+
+def _event_records(path):
+    """The TFRecord records in an event file, its framing checked."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = records = 0
+    while pos < len(data):
+        (length,) = struct.unpack_from("<Q", data, pos)
+        pos += 8 + 4 + length + 4
+        records += 1
+    if pos != len(data):
+        raise RuntimeError(f"{path}: the last record is cut")
+    return records
+
+
+def _launches():
+    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+    return {"vtrace": vtrace_kernel.launches, "nstep": nstep_kernel.launches}
+
+
+def _finite(name, metrics):
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"{name}: non-finite metrics: {bad}")
+
+
+def _run(argv):
+    """One call of seed_rl_torch.train.main under a CheckpointRecorder,
+    the launch counts reset just before; returns (learner, state, metrics,
+    recorder, launches)."""
+    from seed_rl_torch import train
+
+    _reset_launch_counts()
+    with CheckpointRecorder() as recorder:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    return learner, state, metrics, recorder, _launches()
+
+
+def _train_and_resume(name, argv, logdir, frames_per_step, want_launches,
+                      smi):
+    """Trains CKPT_STEPS steps into ``logdir``, holds the checkpoint file
+    against the run's final state, then resumes with a RESUME_STEPS
+    budget; checks each call's kernel launches against ``want_launches``
+    (one dict per call). Returns (the resumed learner and state, the saved
+    tree, the resumed call's recorder)."""
+    from seed_rl_torch.utils import checkpoint as ckpt
+
+    calls = []
+    for steps in (CKPT_STEPS, RESUME_STEPS):
+        learner, state, metrics, recorder, launches = _run(
+            argv + [f"--total_environment_frames={steps * frames_per_step}"])
+        if state.step != steps:
+            raise RuntimeError(f"{name}: ended at step {state.step}, want "
+                               f"{steps}")
+        _finite(name, metrics)
+        calls.append((learner, state, recorder, launches))
+        if steps == CKPT_STEPS:
+            step = ckpt.CheckpointManager(logdir).latest_step()
+            path = os.path.join(logdir, "ckpt", str(step), ckpt.FILE_NAME)
+            t0 = time.perf_counter()
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            load_s = time.perf_counter() - t0
+            tensors = _assert_trees_equal(
+                saved, ckpt.to_saveable(learner.checkpoint_state(state)),
+                f"{name}: the checkpoint of step {step}")
+            save_s = recorder.saves[-1][2]
+            print(f"{name}: checkpoint of step {step}: "
+                  f"{os.path.getsize(path) / 1e6:.3f} MB on disk, "
+                  f"{len(recorder.saves)} saves (the last "
+                  f"{save_s:.3f} s), loaded back in {load_s:.3f} s: its "
+                  f"{tensors} tensors equal the run's final state bitwise "
+                  f"({smi})")
+    got = [c[3] for c in calls]
+    if got != want_launches:
+        raise RuntimeError(f"{name}: kernel launches {got}, want "
+                           f"{want_launches}")
+    learner, state, recorder, _ = calls[1]
+    restored_step, restore_s, _ = recorder.restores[0]
+    if restored_step != CKPT_STEPS:
+        raise RuntimeError(f"{name}: resumed at step {restored_step}, want "
+                           f"{CKPT_STEPS}")
+    print(f"{name}: resumed at step {restored_step} in {restore_s:.3f} s and "
+          f"trained {state.step - restored_step} more steps; kernel "
+          f"launches per call {got} ({smi})")
+    return learner, state, saved, recorder
+
+
+def _check_replay_round_trip(name, state, saved, recorder, per_rollout):
+    """The replay restored equals the saved one bitwise, and no warm-up
+    ran after the restore."""
+    replay = recorder.restores[0][2]
+    tensors = _assert_trees_equal(replay, saved["replay"],
+                                  f"{name}: the restored replay")
+    inserted = saved["replay"]["num_inserted"] + (
+        RESUME_STEPS - CKPT_STEPS) * per_rollout
+    if state.replay.num_inserted != inserted:
+        raise RuntimeError(f"{name}: {state.replay.num_inserted} items "
+                           f"inserted after the resume, want {inserted}: a "
+                           "warm-up ran after the restore")
+    mb = sum(t.numel() * t.element_size() for t in
+             pytree.tree_leaves(saved["replay"]["buffer"])) / 1e6
+    print(f"{name}: the restored replay ({tensors} tensors, {mb:.1f} MB; "
+          f"num_inserted {replay['num_inserted']}, insert_index "
+          f"{replay['insert_index']}) equals the saved one bitwise; no "
+          "warm-up after the restore")
+
+
+def _eval(name, argv, smi):
+    """--run_mode=eval on the logdir: restored at RESUME_STEPS, at least
+    CKPT_EVAL_EPISODES episodes, no kernel launch."""
+    episodes = CKPT_EVAL_EPISODES
+    t0 = time.perf_counter()
+    _, _, metrics, _, launches = _run(
+        argv + ["--run_mode=eval", f"--eval_episodes={episodes}"])
+    if metrics["eval/restored_step"] != RESUME_STEPS:
+        raise RuntimeError(f"{name}: eval restored step "
+                           f"{metrics['eval/restored_step']}")
+    if metrics["eval/num_episodes"] < episodes:
+        raise RuntimeError(f"{name}: eval ran {metrics['eval/num_episodes']}"
+                           f" episodes, want >= {episodes}")
+    _finite(name, metrics)
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: eval launched {launches}")
+    print(f"{name}: --run_mode=eval printed its line in "
+          f"{time.perf_counter() - t0:.3f} s ({smi})")
+
+
+def _check_policy(name, policy, agent, rollout, tol):
+    """The loaded policy against ``agent.policy_step(deterministic=True)``
+    on the rollout's own inputs; returns the max |error| of the state (and
+    of continuous actions)."""
+    batch = rollout.prev_action.shape[0]
+    core = agent.initial_state(batch)
+    action, state = policy(rollout.prev_action, rollout.env_output, core)
+    with torch.no_grad():
+        want, want_state = agent.policy_step(
+            rollout.prev_action, rollout.env_output, core,
+            deterministic=True)
+    err = 0.0
+    if action.dtype.is_floating_point:
+        err = float((action - want.action).abs().max())
+    elif not torch.equal(action, want.action):
+        raise RuntimeError(f"{name}: exported actions differ")
+    for got, w in zip(pytree.tree_leaves(state),
+                      pytree.tree_leaves(want_state)):
+        err = max(err, float((got.float() - w.float()).abs().max()))
+    if not err <= tol:
+        raise RuntimeError(f"{name}: exported policy off by {err} "
+                           f"(tol {tol})")
+    return err
+
+
+def run_checkpoint_vtrace(smi, logdir):
+    """Phase 14 (a); returns its V-trace launches."""
+    from seed_rl_torch.utils.export import export_policy, load_policy
+
+    name = "ckpt vtrace synthetic_atari"
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    path = VTRACE_PATHS["synthetic_atari"]
+    frames = path.envs * path.unroll
+    argv = ["--agent=vtrace", *path.flags, f"--num_envs={path.envs}",
+            f"--unroll_length={path.unroll}", "--steps_per_call=1",
+            "--log_every_steps=1", f"--logdir={logdir}",
+            "--save_checkpoint_secs=0"]
+    steps = [{"vtrace": CKPT_STEPS, "nstep": 0},
+             {"vtrace": RESUME_STEPS - CKPT_STEPS, "nstep": 0}]
+    learner, state, _, _ = _train_and_resume(name, argv, logdir, frames,
+                                             steps, smi)
+    files = sorted(glob.glob(os.path.join(logdir, "events.out.tfevents.*")))
+    records = [_event_records(f) for f in files]
+    if len(files) != 2 or min(records) < 2:
+        raise RuntimeError(f"{name}: event files {files}, records {records}")
+    print(f"{name}: event files of both calls hold {records} records "
+          f"({sum(os.path.getsize(f) for f in files)} bytes)")
+    argv += [f"--total_environment_frames={RESUME_STEPS * frames}"]
+    _eval(name, argv, smi)
+
+    t0 = time.perf_counter()
+    _, _, result, _, launches = _run(
+        argv + ["--run_mode=profile", f"--profile_calls={PROFILE_CALLS}"])
+    trace = os.path.join(result["profile_dir"], "trace.json")
+    if launches != {"vtrace": 1 + PROFILE_CALLS, "nstep": 0} or not (
+            os.path.getsize(trace) > 0):
+        raise RuntimeError(f"{name}: profile launched {launches}, trace "
+                           f"{trace}")
+    print(f"{name}: --run_mode=profile traced {PROFILE_CALLS} calls at "
+          f"{result['frames_per_sec']:.1f} env frames/s (traced) into "
+          f"{os.path.getsize(trace) / 1e6:.1f} MB in "
+          f"{time.perf_counter() - t0:.3f} s; vtrace launches {launches}")
+
+    export_dir = os.path.join(logdir, "export")
+    t0 = time.perf_counter()
+    export_policy(export_dir, learner.agent, state.rollout.prev_action,
+                  state.rollout.env_output)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    policy = load_policy(export_dir)
+    load_s = time.perf_counter() - t0
+    err = _check_policy(name, policy, learner.agent, state.rollout,
+                        EXPORT_TOL)
+    print(f"{name}: exported in {export_s:.3f} s, loaded in {load_s:.3f} s: "
+          f"actions equal to policy_step(deterministic=True)'s on the "
+          f"rollout's {path.envs} env outputs, state max|err|={err:.3e} "
+          f"(tol {EXPORT_TOL}) ({smi})")
+    _print_path_end(name, start)
+    return RESUME_STEPS + 1 + PROFILE_CALLS
+
+
+def run_checkpoint_r2d2(smi, logdir):
+    """Phase 14 (b); returns its n-step launches."""
+    name = "ckpt r2d2 discrete_match"
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    argv = _r2d2_argv("discrete_match") + [f"--logdir={logdir}"]
+    per_rollout = R2D2_ENVS - R2D2_EVAL_ENVS
+    moved = RESUME_STEPS - CKPT_STEPS
+    want = [{"vtrace": 0, "nstep": R2D2_WARMUPS + CKPT_STEPS * 2},
+            {"vtrace": 0, "nstep": moved * 2}]
+    _, state, saved, recorder = _train_and_resume(
+        name, argv, logdir, R2D2_ENVS * R2D2_UNROLL, want, smi)
+    _check_replay_round_trip(name, state, saved, recorder, per_rollout)
+    _eval(name, argv + ["--total_environment_frames="
+                        f"{RESUME_STEPS * R2D2_ENVS * R2D2_UNROLL}"], smi)
+    _print_path_end(name, start)
+    return sum(w["nstep"] for w in want)
+
+
+def run_checkpoint_ppo(smi, logdir):
+    """Phase 14 (c): PPO's action points."""
+    from seed_rl_torch.utils import checkpoint as ckpt
+    from seed_rl_torch.utils.export import load_policy
+
+    name = "ckpt ppo toy"
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    path = PPO_PATHS["ppo_toy"]
+    frames = path.envs * path.unroll
+    learner, state, metrics, recorder, launches = _run([
+        "--agent=ppo", *path.flags, f"--num_envs={path.envs}",
+        f"--unroll_length={path.unroll}", f"--epochs_per_step={path.epochs}",
+        f"--batches_per_step={path.minibatches}",
+        f"--total_environment_frames={CKPT_STEPS * frames}",
+        "--steps_per_call=1", "--log_every_steps=1", f"--logdir={logdir}",
+        "--num_checkpoints=2", "--num_saved_models=2", "--num_snapshots=2"])
+    _finite(name, metrics)
+    forced = [step for step, force, _ in recorder.saves if force]
+    exported = sorted(int(d) for d in os.listdir(
+        os.path.join(logdir, "saved_models")))
+    snapshots = [s.frames for s in learner.snapshots]
+    marks = [frames, 2 * frames]
+    # The two marks' saves, then the loop's last one (forced, at step 2).
+    if (forced != [1, 2, 2] or len(recorder.saves) != 3 or exported != marks
+            or snapshots != marks or any(launches.values())):
+        raise RuntimeError(
+            f"{name}: saves {recorder.saves}, saved models {exported}, "
+            f"snapshots {snapshots}, launches {launches}; want saves at "
+            f"steps 1 and 2 and the last, models and snapshots at {marks}")
+    t0 = time.perf_counter()
+    policy = load_policy(os.path.join(logdir, "saved_models", str(marks[-1])))
+    load_s = time.perf_counter() - t0
+    err = _check_policy(name, policy, learner.agent, state.rollout,
+                        EXPORT_TOL)
+    size = os.path.getsize(os.path.join(logdir, "ckpt", str(CKPT_STEPS),
+                                        ckpt.FILE_NAME))
+    print(f"{name}: checkpoints at steps {sorted(set(forced))} "
+          f"({size / 1e6:.3f} MB on disk, the last save "
+          f"{recorder.saves[-1][2]:.3f} s), saved models at {exported} "
+          f"frames (exports "
+          f"{', '.join(f'{s:.3f}' for s in recorder.exports)} s), "
+          f"{len(snapshots)} snapshots; the "
+          f"last model loaded in {load_s:.3f} s gives the agent's "
+          f"deterministic actions within {err:.3e} (tol {EXPORT_TOL}), its "
+          f"input statistics inside ({smi})")
+    _print_path_end(name, start)
+
+
+def run_checkpoint_sac(smi, logdir):
+    """Phase 14 (d): the replay of frames through a checkpoint."""
+    name = "ckpt sac catch_continuous"
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    path = SAC_PATHS["sac_catch_continuous"]
+    argv = ["--agent=sac", *path.flags, f"--num_envs={path.envs}",
+            "--steps_per_call=1", "--log_every_steps=1", f"--logdir={logdir}"]
+    none = {"vtrace": 0, "nstep": 0}
+    _, state, saved, recorder = _train_and_resume(
+        name, argv, logdir, path.envs * path.rollout, [none, none], smi)
+    _check_replay_round_trip(name, state, saved, recorder, path.envs)
+    _eval(name, argv + ["--total_environment_frames="
+                        f"{RESUME_STEPS * path.envs * path.rollout}"], smi)
+    _print_path_end(name, start)
+
+
+def run_checkpoint_paths(smi):
+    """Phase 14; returns its V-trace and n-step launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        vtrace = run_checkpoint_vtrace(smi, os.path.join(root, "vtrace"))
+        nstep = run_checkpoint_r2d2(smi, os.path.join(root, "r2d2"))
+        run_checkpoint_ppo(smi, os.path.join(root, "ppo"))
+        run_checkpoint_sac(smi, os.path.join(root, "sac"))
+    return vtrace, nstep
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -1125,6 +1550,11 @@ def main():
     nstep_err = max(nstep_err, err)
     ppo_launches = {name: run_ppo(smi, name) for name in PPO_PATHS}
     sac_launches = {name: run_sac(smi, name) for name in SAC_PATHS}
+    t0 = time.perf_counter()
+    vtrace_launches["checkpoints"], nstep_launches["checkpoints"] = (
+        run_checkpoint_paths(smi))
+    print(f"phase 14 (checkpoints, logs, export, eval, profile) took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
           f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "

@@ -31,6 +31,7 @@ update against the JAX package's ``jax.random`` draws.
 
 import dataclasses
 import itertools
+import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -41,6 +42,11 @@ from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
 )
 from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
 from seed_rl_torch.utils import episode_stats
+from seed_rl_torch.utils.action_points import (
+    ActionPointSchedule,
+    snapshot_ppo_state,
+)
+from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
 
 BATCH_MODES = (
     "repeat",
@@ -147,6 +153,9 @@ class PPOLearner:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.frames_per_step = engine.unroll_length * engine.env.num_envs
+        # The in-memory snapshots ``learner_loop`` takes at its action
+        # points (``utils/action_points.LearnerState``).
+        self.snapshots = []
 
     def parameters(self) -> List[torch.nn.Parameter]:
         """Everything the optimizer updates: the net and the loss-owned
@@ -158,6 +167,32 @@ class PPOLearner:
         return pytree.tree_leaves((
             state.norm_state, state.rollout, state.stats,
             getattr(self.agent, "obs_norm", ())))
+
+    def checkpoint_state(self, state: PPOTrainState) -> Dict[str, Any]:
+        """Everything a resumed run needs (``utils/checkpoint.py``): the
+        train state's fields (the PopArt state among them), the net and the
+        loss-owned parameters, the optimizer, the input statistics (None
+        without) and every generator."""
+        return dict(
+            state._asdict(),
+            params={"net": self.agent.net.state_dict(),
+                    "loss": pytree.tree_map(torch.Tensor.detach,
+                                            self.loss_params)},
+            opt_state=self.optimizer.state_dict(),
+            obs_norm=getattr(self.agent, "obs_norm", None),
+            generators=generator_states(self),
+        )
+
+    def load_checkpoint_state(self, state: PPOTrainState,
+                              tree: Dict[str, Any]) -> PPOTrainState:
+        """Takes back a tree of ``checkpoint_state``'s structure, whole or
+        its warm-start fields only; returns the train state."""
+        self.agent.net.load_state_dict(tree["params"]["net"])
+        self._assign_loss_params(tree["params"]["loss"])
+        self.optimizer.load_state_dict(tree["opt_state"])
+        if tree["obs_norm"] is not None:
+            self.agent.obs_norm = tree["obs_norm"]
+        return load_train_state(self, state, tree)
 
     def init(self) -> PPOTrainState:
         return PPOTrainState(
@@ -290,19 +325,40 @@ def learner_loop(
     learner: PPOLearner,
     total_environment_frames: int,
     logger=None,
+    checkpoint=None,
     log_every_steps: int = 10,
     steps_per_call: int = 1,
+    num_checkpoints: int = 0,
+    num_saved_models: int = 0,
+    num_snapshots: int = 0,
+    logdir: Optional[str] = None,
 ) -> Tuple[PPOTrainState, Dict[str, Any]]:
     """Train until the frame budget, logging ``episodes/mean_return`` over
     the window since the last log line (the JAX CLI's PPO loop). Returns
-    the final state and the metrics of the last call. Checkpoints, saved
-    models and snapshots wait for a later slice."""
+    the final state and the metrics of the last call.
+
+    With a ``checkpoint`` manager the loop restores on start, offers a save
+    after every call and forces one at the end. The action points fire at
+    ``linspace(0, total_environment_frames, n + 1)[1:]`` frames, once per
+    mark crossed: ``num_checkpoints`` forced saves and ``num_saved_models``
+    policy exports to ``<logdir>/saved_models/<frames>`` (only with a
+    ``logdir``), each at most once per call, and ``num_snapshots``
+    in-memory snapshots, one per mark, appended to ``learner.snapshots``.
+    """
     state = learner.init()
+    if checkpoint is not None:
+        state = checkpoint.restore_or(learner, state)
+    schedule = ActionPointSchedule(total_environment_frames, {
+        "checkpoint": num_checkpoints,
+        "saved_model": num_saved_models,
+        "snapshot": num_snapshots,
+    })
     metrics: Dict[str, Any] = {}
     frames_per_step = learner.frames_per_step
     while state.step * frames_per_step < total_environment_frames:
         state, metrics = learner.train_many(state, steps_per_call)
         step = state.step
+        frames = step * frames_per_step
         if logger is not None and step % log_every_steps < steps_per_call:
             metrics = dict(metrics)
             n = float(state.stats.num_episodes)
@@ -311,5 +367,24 @@ def learner_loop(
                     float(state.stats.sum_return) / n)
                 state = state._replace(
                     stats=episode_stats.reset_window(state.stats))
-            logger.log(step, metrics, frames=step * frames_per_step)
+            logger.log(step, metrics, frames=frames)
+        fired = schedule.due(frames)
+        # Jumped marks repeat in ``fired``: the same state saved or
+        # exported twice is pointless, so those two fire once a call, while
+        # snapshots honour the requested count.
+        if "checkpoint" in fired and checkpoint is not None:
+            checkpoint.maybe_save(step, learner, state, force=True)
+        if "saved_model" in fired and logdir:
+            from seed_rl_torch.utils.export import export_policy
+
+            export_policy(os.path.join(logdir, "saved_models", str(frames)),
+                          learner.agent, state.rollout.prev_action,
+                          state.rollout.env_output)
+        learner.snapshots.extend(
+            snapshot_ppo_state(learner, state, frames)
+            for _ in range(fired.count("snapshot")))
+        if checkpoint is not None:
+            checkpoint.maybe_save(step, learner, state)
+    if checkpoint is not None:
+        checkpoint.maybe_save(state.step, learner, state, force=True)
     return state, metrics

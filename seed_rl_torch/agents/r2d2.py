@@ -43,6 +43,7 @@ from seed_rl_torch.replay import PrioritizedReplay, ReplayState
 from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
 from seed_rl_torch.types import QAgentOutput
 from seed_rl_torch.utils import episode_stats
+from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
 
 
 def training_env_epsilons(num_training_envs: int, device=None) -> torch.Tensor:
@@ -70,13 +71,17 @@ class R2D2Agent:
         generator: Optional[torch.Generator] = None,
         random_actions: Optional[torch.Tensor] = None,
         uniform: Optional[torch.Tensor] = None,
+        deterministic: bool = False,
     ) -> Tuple[QAgentOutput, Any]:
-        """One epsilon-greedy step on [B] inputs (batch position = env id).
+        """One epsilon-greedy step on [B] inputs (batch position = env id),
+        or with ``deterministic`` the greedy one, which draws nothing.
 
         ``random_actions`` (int[B]) and ``uniform`` (f32[B] in [0, 1))
         replace the generator's draws.
         """
         output, new_state = self.net(prev_action, env_output, core_state)
+        if deterministic:
+            return QAgentOutput(output.action, output.q_values), new_state
         batch = output.action.shape[0]
         device = output.action.device
         if random_actions is None:
@@ -336,6 +341,28 @@ class R2D2Learner:
             state.stats, state.eval_stats,
         ))
 
+    def checkpoint_state(self, state: R2D2TrainState) -> Dict[str, Any]:
+        """Everything a resumed run needs (``utils/checkpoint.py``): the
+        train state's fields (the replay with its priorities and cursors
+        among them), the online and target nets, the optimizer and every
+        generator."""
+        return dict(
+            state._asdict(),
+            params={"net": self.net.state_dict()},
+            target_params={"net": self.target_net.state_dict()},
+            opt_state=self.optimizer.state_dict(),
+            generators=generator_states(self),
+        )
+
+    def load_checkpoint_state(self, state: R2D2TrainState,
+                              tree: Dict[str, Any]) -> R2D2TrainState:
+        """Takes back a tree of ``checkpoint_state``'s structure, whole or
+        its warm-start fields only; returns the train state."""
+        self.net.load_state_dict(tree["params"]["net"])
+        self.target_net.load_state_dict(tree["target_params"]["net"])
+        self.optimizer.load_state_dict(tree["opt_state"])
+        return load_train_state(self, state, tree)
+
     def sync_target(self):
         """Hard update: target parameters <- online parameters."""
         with torch.no_grad():
@@ -463,6 +490,7 @@ def learner_loop(
     learner: R2D2Learner,
     total_environment_frames: int,
     logger=None,
+    checkpoint=None,
     log_every_steps: int = 10,
     steps_per_call: int = 1,
 ) -> Tuple[R2D2TrainState, Dict[str, Any]]:
@@ -470,10 +498,14 @@ def learner_loop(
 
     Returns the final state and the metrics of the last call. Unlike
     V-trace, both episode-stat windows (training and eval envs) reset on
-    every log line, as in the JAX package. Checkpointing waits for a later
-    slice.
+    every log line, as in the JAX package. With a ``checkpoint`` manager
+    the loop restores on start (a restored replay that holds the minimum
+    is not warmed up again), offers a save after every call and forces one
+    at the end.
     """
     state = learner.init()
+    if checkpoint is not None:
+        state = checkpoint.restore_or(learner, state)
     while state.replay.num_inserted < learner.config.replay_buffer_min_size:
         state = learner.warmup_step(state)
     metrics: Dict[str, Any] = {}
@@ -496,4 +528,8 @@ def learner_loop(
                 eval_stats=episode_stats.reset_window(state.eval_stats),
             )
             logger.log(step, metrics, frames=step * frames_per_step)
+        if checkpoint is not None:
+            checkpoint.maybe_save(step, learner, state)
+    if checkpoint is not None:
+        checkpoint.maybe_save(state.step, learner, state, force=True)
     return state, metrics

@@ -50,6 +50,7 @@ from seed_rl_torch.replay import (
 from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
 from seed_rl_torch.types import AgentOutput
 from seed_rl_torch.utils import episode_stats
+from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
 
 
 class SACAgent:
@@ -121,17 +122,21 @@ class SACAgent:
                               state, action)
 
     def policy_step(self, prev_action, env_output, core_state,
-                    generator: Optional[torch.Generator] = None):
-        """One step on ``[B]`` inputs: samples from the actor; a recurrent
-        net advances every net's carry. (The deterministic mode waits for
-        SAC's eval.)"""
+                    generator: Optional[torch.Generator] = None,
+                    deterministic: bool = False):
+        """One step on ``[B]`` inputs: samples from the actor, or with
+        ``deterministic`` takes its distribution's mode; a recurrent net
+        advances every net's carry either way."""
         if self.net.stateless:
             action_params = self.action_params(prev_action, env_output,
                                                core_state)
         else:
             action_params, core_state = self.net.step(
                 prev_action, self._normalized(env_output), core_state)
-        action = self.distribution.sample(action_params, generator)
+        if deterministic:
+            action = self.distribution.mode(action_params)
+        else:
+            action = self.distribution.sample(action_params, generator)
         # SAC stores no baseline; the slot keeps AgentOutput's layout.
         baseline = torch.zeros(action_params.shape[:-1],
                                device=action_params.device)
@@ -403,6 +408,37 @@ class SACLearner:
             self.target_agent.obs_norm or ()))
             + list(self.target_agent.net.parameters()))
 
+    def checkpoint_state(self, state: SACTrainState) -> Dict[str, Any]:
+        """Everything a resumed run needs (``utils/checkpoint.py``): the
+        train state's fields (the replay with its cursors, the step and
+        batch counts among them), the online net and the entropy cost, the
+        target agent's net and statistics, the optimizer, the observation
+        statistics (None without) and every generator."""
+        return dict(
+            state._asdict(),
+            params={"net": self.net.state_dict(),
+                    "entropy_cost": self.entropy_cost.detach()},
+            target_net_params={"net": self.target_agent.net.state_dict(),
+                               "obs_norm": self.target_agent.obs_norm},
+            opt_state=self.optimizer.state_dict(),
+            obs_norm=self.agent.obs_norm,
+            generators=generator_states(self),
+        )
+
+    def load_checkpoint_state(self, state: SACTrainState,
+                              tree: Dict[str, Any]) -> SACTrainState:
+        """Takes back a tree of ``checkpoint_state``'s structure, whole or
+        its warm-start fields only; returns the train state."""
+        self.net.load_state_dict(tree["params"]["net"])
+        with torch.no_grad():
+            self.entropy_cost.copy_(tree["params"]["entropy_cost"])
+        target = tree["target_net_params"]
+        self.target_agent.net.load_state_dict(target["net"])
+        self.target_agent.obs_norm = target["obs_norm"]
+        self.optimizer.load_state_dict(tree["opt_state"])
+        self.agent.obs_norm = tree["obs_norm"]
+        return load_train_state(self, state, tree)
+
     def _unroll_to_items(self, unroll: Unroll) -> StoredUnroll:
         ts = unroll.timesteps
 
@@ -533,14 +569,19 @@ def learner_loop(
     learner: SACLearner,
     total_environment_frames: int,
     logger=None,
+    checkpoint=None,
     log_every_steps: int = 10,
     steps_per_call: int = 1,
 ) -> Tuple[SACTrainState, Dict[str, Any]]:
     """Warm up to ``replay_buffer_min_size``, then train to the budget,
     logging ``episodes/mean_return`` over the window since the last log
     line (the JAX CLI's SAC loop). Returns the final state and the metrics
-    of the last call. Checkpointing waits for a later slice."""
+    of the last call. With a ``checkpoint`` manager the loop restores on
+    start (a restored replay that holds the minimum is not warmed up
+    again), offers a save after every call and forces one at the end."""
     state = learner.init()
+    if checkpoint is not None:
+        state = checkpoint.restore_or(learner, state)
     while state.replay.num_inserted < learner.config.replay_buffer_min_size:
         state = learner.warmup_step(state)
     metrics: Dict[str, Any] = {}
@@ -557,4 +598,8 @@ def learner_loop(
                 state = state._replace(
                     stats=episode_stats.reset_window(state.stats))
             logger.log(step, metrics, frames=step * frames_per_step)
+        if checkpoint is not None:
+            checkpoint.maybe_save(step, learner, state)
+    if checkpoint is not None:
+        checkpoint.maybe_save(state.step, learner, state, force=True)
     return state, metrics

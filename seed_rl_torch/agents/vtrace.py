@@ -29,6 +29,7 @@ from seed_rl_torch.distributions import ParametricDistribution
 from seed_rl_torch.ops.cuda import vtrace_kernel as vtrace_ops
 from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
 from seed_rl_torch.utils import episode_stats
+from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +210,31 @@ class VTraceLearner:
         return pytree.tree_leaves((state.rollout, state.stats,
                                    getattr(self.agent, "obs_norm", ())))
 
+    def checkpoint_state(self, state: VTraceTrainState) -> Dict[str, Any]:
+        """Everything a resumed run needs (``utils/checkpoint.py``): the
+        train state's fields, the net and the entropy cost, the optimizer,
+        the observation statistics (None without) and every generator."""
+        return dict(
+            state._asdict(),
+            params={"net": self.agent.net.state_dict(),
+                    "entropy_cost": self.entropy_cost.detach()},
+            opt_state=self.optimizer.state_dict(),
+            obs_norm=getattr(self.agent, "obs_norm", None),
+            generators=generator_states(self),
+        )
+
+    def load_checkpoint_state(self, state: VTraceTrainState,
+                              tree: Dict[str, Any]) -> VTraceTrainState:
+        """Takes back a tree of ``checkpoint_state``'s structure, whole or
+        its warm-start fields only; returns the train state."""
+        self.agent.net.load_state_dict(tree["params"]["net"])
+        with torch.no_grad():
+            self.entropy_cost.copy_(tree["params"]["entropy_cost"])
+        self.optimizer.load_state_dict(tree["opt_state"])
+        if tree["obs_norm"] is not None:
+            self.agent.obs_norm = tree["obs_norm"]
+        return load_train_state(self, state, tree)
+
     def init(self) -> VTraceTrainState:
         """Starts the rollout and the counters (parameters live on the
         network, optimizer state on the optimizer)."""
@@ -274,6 +300,7 @@ def learner_loop(
     learner: VTraceLearner,
     total_environment_frames: int,
     logger=None,
+    checkpoint=None,
     log_every_steps: int = 10,
     steps_per_call: int = 1,
 ) -> Tuple[VTraceTrainState, Dict[str, Any]]:
@@ -281,14 +308,17 @@ def learner_loop(
 
     Returns the final state and the metrics of the last call. The
     episode-stat window resets only when a log line fires (see the JAX
-    package's ``learner_loop`` for the cadence note). Checkpointing waits
-    for a later slice.
+    package's ``learner_loop`` for the cadence note). With a
+    ``checkpoint`` manager the loop restores on start, offers a save after
+    every call and forces one at the end.
     """
     if log_every_steps < steps_per_call:
         raise ValueError(
             "log_every_steps < steps_per_call would skip log lines entirely"
         )
     state = learner.init()
+    if checkpoint is not None:
+        state = checkpoint.restore_or(learner, state)
     metrics: Dict[str, Any] = {}
     frames_per_step = learner.frames_per_step
     while state.step * frames_per_step < total_environment_frames:
@@ -305,4 +335,8 @@ def learner_loop(
                     stats=episode_stats.reset_window(stats)
                 )
             logger.log(step, metrics, frames=step * frames_per_step)
+        if checkpoint is not None:
+            checkpoint.maybe_save(step, learner, state)
+    if checkpoint is not None:
+        checkpoint.maybe_save(state.step, learner, state, force=True)
     return state, metrics

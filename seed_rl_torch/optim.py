@@ -10,9 +10,14 @@ optax.adam(schedule, b1=b1, eps=eps))`` over a list of parameters:
 - a parameter the loss did not reach steps with a zero gradient, as optax
   gives it one: its moments decay and it moves on them, where
   ``torch.optim.Adam`` would skip it and keep a step count of its own.
+
+``state_dict`` / ``load_state_dict`` carry what optax's chain state
+carries: each parameter's Adam moments and step, and ``count``, which is
+also the schedule's position. A run restored from it steps on bitwise as
+if never stopped.
 """
 
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -90,3 +95,31 @@ class ClippedAdam:
         self._adam.step()
         self.count += 1
         return norm
+
+    def state_dict(self) -> Dict[str, object]:
+        """``count`` and, per parameter in order, Adam's ``step``,
+        ``exp_avg`` and ``exp_avg_sq`` (live tensors; zeros before the first
+        update, when Adam holds none yet)."""
+        moments = [self._adam.state.get(p) or {
+            "step": torch.zeros(()), "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p)} for p in self.params]
+        return {"count": self.count, **{
+            key: [m[key] for m in moments]
+            for key in ("step", "exp_avg", "exp_avg_sq")}}
+
+    def load_state_dict(self, state: Dict[str, object]):
+        """Takes copies of ``state``'s tensors (Adam updates its own in
+        place); a ``count`` of 0 leaves Adam to make its state at the first
+        update, as a new optimizer does."""
+        self.count = int(state["count"])
+        self._adam.state.clear()
+        if not self.count:
+            return
+        for i, p in enumerate(self.params):
+            self._adam.state[p] = {
+                "step": state["step"][i].detach().clone(),
+                "exp_avg": state["exp_avg"][i].detach().to(p.device,
+                                                           copy=True),
+                "exp_avg_sq": state["exp_avg_sq"][i].detach().to(p.device,
+                                                                 copy=True),
+            }

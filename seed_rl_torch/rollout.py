@@ -65,8 +65,7 @@ class RolloutEngine:
     Args:
       batched_env: a ``BatchedEnv`` (auto-resetting, on one device).
       agent: object with ``policy_step(prev_action, env_output, core_state,
-        generator)`` (and ``deterministic=True`` when ``deterministic``) and
-        ``initial_state(batch)``.
+        generator, deterministic=...)`` and ``initial_state(batch)``.
       unroll_length: T — new timesteps per unroll.
       num_overlapping_steps: o — timesteps shared with the previous unroll in
         addition to the +1 boundary step (R2D2 burn-in).
@@ -104,11 +103,9 @@ class RolloutEngine:
         return zero.expand((batch,) + tuple(zero.shape)).contiguous()
 
     def _step(self, env_state, env_output, agent_state, prev_action):
-        # Only eval passes ``deterministic``: agents that have no eval mode
-        # yet (R2D2) need not take it.
-        extra = {"deterministic": True} if self.deterministic else {}
         agent_output, agent_state = self.agent.policy_step(
-            prev_action, env_output, agent_state, self.generator, **extra
+            prev_action, env_output, agent_state, self.generator,
+            deterministic=self.deterministic,
         )
         timestep = Timestep(
             prev_action=prev_action,

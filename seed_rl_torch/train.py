@@ -25,17 +25,38 @@ runs on the CPU):
   ``catch`` / ``catch_continuous`` ``VisualActorCritic`` over frames;
   ``--her_window_length`` turns on HER (``bit_flipping`` only), and
   ``--normalize_observations`` works on the vector envs.
-Other agent/env pairs, run modes, checkpoints (and PPO's action points:
-checkpoints, saved models, snapshots), observation normalization outside
-V-trace and SAC or on frames, host-env replay ratios and more than one
-replica are not ported yet and raise ``NotImplementedError`` rather than
-being ignored. Where the JAX CLI accepts a flag and ignores it, or takes
-one it cannot use, this one raises ``ValueError``: ``--conv_net=atari``,
+
+Every agent checkpoints and logs as the JAX CLI does:
+- ``--logdir``: TensorBoard scalars under it, and checkpoints under
+  ``<logdir>/ckpt`` every ``--save_checkpoint_secs`` (the first at once, a
+  last one at the end); a run restarted on the same logdir resumes where
+  the last checkpoint left it, bitwise as if never stopped;
+- ``--init_checkpoint=<logdir>``: with nothing to resume from, warm-start
+  the parameters, the optimizer, the statistics and the step from that
+  run's latest checkpoint (any ``num_envs``);
+- ``--run_mode=eval``: restore, run ``--eval_episodes`` episodes with the
+  deterministic policy step, print one JSON line with
+  ``eval/restored_step``;
+- ``--run_mode=profile``: warm the replay up (R2D2, SAC), make one warm
+  call, then trace ``--profile_calls`` calls of ``--steps_per_call`` steps
+  with ``torch.profiler`` into ``<logdir or $TMPDIR/seed_rl_torch>/profile
+  /trace.json`` (Chrome format) and print one JSON line;
+- ``--agent=ppo`` only: ``--num_checkpoints``, ``--num_saved_models``
+  (exports to ``<logdir>/saved_models/<frames>``) and ``--num_snapshots``
+  (in-memory, on ``learner.snapshots``) at linspace frame marks.
+
+Other agent/env pairs, ``--run_mode={actor,learner}``,
+``--checkpoint_replay``, observation normalization outside V-trace and SAC
+or on frames, host-env replay ratios and more than one replica are not
+ported yet and raise ``NotImplementedError`` rather than being ignored.
+Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
+use, this one raises ``ValueError``: ``--conv_net=atari``,
 ``--conv_net=impala_deep`` and ``--remat_torso`` where no conv net reads
-them, a ``--lambda_`` other than its default under ``--agent=vtrace``,
-``--train_batches_per_step``, ``--update_target_every_n_step`` and
-``--sac_net=lstm`` on frames under ``--agent=sac``, and HER on any env but
-``bit_flipping`` or with windows shorter than ``unroll_length + 1``.
+them, a ``--lambda_`` other than its default under ``--agent=vtrace``, the
+action-point counts outside ``--agent=ppo``, ``--train_batches_per_step``,
+``--update_target_every_n_step`` and ``--sac_net=lstm`` on frames under
+``--agent=sac``, and HER on any env but ``bit_flipping`` or with windows
+shorter than ``unroll_length + 1``.
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -52,11 +73,18 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=sac --env=bit_flipping \
       --sac_net=lstm --her_window_length=16 --unroll_length=2 \
       --num_envs=256 --batch_size=256 --replay_buffer_size=4096
+  python -m seed_rl_torch.train --agent=vtrace --env=catch \
+      --num_envs=256 --unroll_length=20 --logdir=/path/to/run \
+      --run_mode=eval --eval_episodes=256
 """
 
 import argparse
 import functools
+import json
 import math
+import os
+import tempfile
+import time
 
 import torch
 
@@ -83,6 +111,8 @@ PORTED = {
 # Envs whose observations are frames, for the conv nets.
 PIXEL_ENVS = ("catch", "catch_continuous", "synthetic_atari")
 LAMBDA_DEFAULT = 0.95
+# Reseeds the envs' generator for --run_mode=eval (the JAX CLI's eval key).
+EVAL_SEED = 1234
 # The JAX CLI's defaults of flags its SAC branch never reads.
 TRAIN_BATCHES_PER_STEP_DEFAULT = 1
 UPDATE_TARGET_EVERY_N_STEP_DEFAULT = 2500
@@ -91,11 +121,18 @@ UPDATE_TARGET_EVERY_N_STEP_DEFAULT = 2500
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--agent", required=True, choices=AGENTS)
-    p.add_argument("--run_mode", default="train", choices=RUN_MODES)
+    p.add_argument("--run_mode", default="train", choices=RUN_MODES,
+                   help="eval = restore from --logdir (or --init_checkpoint)"
+                        " and evaluate the deterministic policy; profile = "
+                        "trace --profile_calls calls with torch.profiler; "
+                        "actor and learner (the remote-actor runtime) are "
+                        "not ported yet")
     p.add_argument("--env", required=True, choices=ENVS)
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
-    p.add_argument("--logdir", default=None)
+    p.add_argument("--logdir", default=None,
+                   help="TensorBoard scalars and checkpoints (<logdir>/ckpt)"
+                        "; a run on a logdir that holds one resumes it")
     p.add_argument("--total_environment_frames",
                    type=lambda s: int(float(s)), default=1_000_000)
     p.add_argument("--num_envs", type=int, default=64)
@@ -109,7 +146,15 @@ def parse_args(argv=None):
     p.add_argument("--clip_norm", type=float, default=40.0)
     p.add_argument("--discounting", type=float, default=0.99)
     p.add_argument("--entropy_cost", type=float, default=2.5e-4)
-    p.add_argument("--init_checkpoint", default=None)
+    p.add_argument("--save_checkpoint_secs", type=float, default=1800)
+    p.add_argument("--init_checkpoint", default=None,
+                   help="a logdir to warm-start from when --logdir holds "
+                        "no checkpoint")
+    p.add_argument("--checkpoint_replay", action="store_true",
+                   help="host-env off-policy agents (not ported yet)")
+    p.add_argument("--eval_episodes", type=int, default=32)
+    p.add_argument("--profile_calls", type=int, default=5,
+                   help="train_many calls traced by --run_mode=profile")
     p.add_argument("--steps_per_call", type=int, default=10)
     p.add_argument("--log_every_steps", type=int, default=20)
     p.add_argument("--normalize_observations", action="store_true",
@@ -211,21 +256,20 @@ def _refuse_unported(args):
         refuse(f"--agent={args.agent}")
     if args.env not in PORTED[args.agent]:
         refuse(f"--env={args.env} with --agent={args.agent}")
-    if args.run_mode != "train":
-        refuse(f"--run_mode={args.run_mode}")
-    if args.logdir is not None:
-        refuse("--logdir (checkpoints and TensorBoard logs)")
-    if args.init_checkpoint is not None:
-        refuse("--init_checkpoint")
+    if args.run_mode in ("actor", "learner"):
+        refuse(f"--run_mode={args.run_mode} (the remote-actor runtime)")
+    if args.checkpoint_replay:
+        refuse("--checkpoint_replay (host-env replay)")
     if args.normalize_observations and (
             args.agent not in ("vtrace", "sac") or args.env in PIXEL_ENVS):
         refuse(f"--normalize_observations with --agent={args.agent} "
                f"--env={args.env}")
-    for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
-        if getattr(args, flag):
-            refuse(f"--{flag} (action points need checkpoints and export)")
     if args.replay_ratio is not None:
         refuse("--replay_ratio (host-env replay)")
+    for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
+        if getattr(args, flag) and args.agent != "ppo":
+            raise ValueError(f"--{flag} is read by --agent=ppo only (the "
+                             "JAX CLI ignores it elsewhere)")
     if args.conv_net == "atari":
         raise ValueError(
             "--conv_net=atari selects nothing in the JAX CLI; AtariPolicyNet "
@@ -291,7 +335,8 @@ def make_env(args, device):
 
 
 def main(argv=None):
-    """Trains; returns (learner, final train state, last metrics)."""
+    """Trains, evaluates or profiles (``--run_mode``); returns (learner,
+    train state, metrics): the last call's metrics, eval's or profile's."""
     args = parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -299,6 +344,7 @@ def main(argv=None):
 
     from seed_rl_torch import optim
     from seed_rl_torch.utils import debug_asserts
+    from seed_rl_torch.utils.checkpoint import CheckpointManager
     from seed_rl_torch.utils.metrics import MetricsLogger
 
     debug_asserts.enable(args.debug_asserts)
@@ -336,14 +382,86 @@ def main(argv=None):
         learner, loop = _sac_learner(args, env, optimizer, device)
     else:
         learner, loop = _vtrace_learner(args, env, optimizer, device)
-    state, metrics = loop(
-        learner,
-        args.total_environment_frames,
-        logger=MetricsLogger(),
-        log_every_steps=args.log_every_steps,
-        steps_per_call=args.steps_per_call,
+    checkpoint = CheckpointManager(
+        args.logdir,
+        save_checkpoint_secs=args.save_checkpoint_secs,
+        init_checkpoint=args.init_checkpoint,
     )
+    if args.run_mode == "eval":
+        return _eval(args, learner, checkpoint)
+    if args.run_mode == "profile":
+        return _profile(args, learner)
+    logger = MetricsLogger(args.logdir)
+    try:
+        state, metrics = loop(
+            learner,
+            args.total_environment_frames,
+            logger=logger,
+            checkpoint=checkpoint,
+            log_every_steps=args.log_every_steps,
+            steps_per_call=args.steps_per_call,
+        )
+    finally:
+        logger.close()
+        checkpoint.close()
     return learner, state, metrics
+
+
+def _eval(args, learner, checkpoint):
+    """``--run_mode=eval``: restore, then deterministic evaluation on the
+    learner's envs; prints one JSON line."""
+    from seed_rl_torch.evaluation import run_eval
+
+    state = checkpoint.restore_or(learner, learner.init())
+    metrics = run_eval(learner.engine.env, learner.agent, args.eval_episodes,
+                       unroll_length=args.unroll_length, seed=EVAL_SEED)
+    metrics["eval/restored_step"] = state.step
+    print(json.dumps(metrics), flush=True)
+    return learner, state, metrics
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _profile(args, learner):
+    """``--run_mode=profile``: after the replay's warm-up (R2D2, SAC) and
+    one warm call, trace ``--profile_calls`` calls with ``torch.profiler``
+    (the CPU and, on the card, CUDA) into a Chrome trace; prints one JSON
+    line with the traced calls' env frames/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = learner.init()
+    if hasattr(learner, "warmup_step"):  # replay learners
+        while (state.replay.num_inserted
+               < learner.config.replay_buffer_min_size):
+            state = learner.warmup_step(state)
+    state, _ = learner.train_many(state, args.steps_per_call)
+    _synchronize(learner.device)
+    activities = [ProfilerActivity.CPU]
+    if learner.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    start = time.perf_counter()
+    with profile(activities=activities) as prof:
+        for _ in range(args.profile_calls):
+            state, _ = learner.train_many(state, args.steps_per_call)
+        _synchronize(learner.device)
+    seconds = time.perf_counter() - start
+    outdir = os.path.join(
+        args.logdir or os.path.join(tempfile.gettempdir(), "seed_rl_torch"),
+        "profile")
+    os.makedirs(outdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
+    frames = args.profile_calls * args.steps_per_call * learner.frames_per_step
+    result = {
+        "profile_dir": outdir,
+        "frames_per_sec": frames / seconds,
+        "calls": args.profile_calls,
+        "steps_per_call": args.steps_per_call,
+    }
+    print(json.dumps(result), flush=True)
+    return learner, state, result
 
 
 def _vtrace_learner(args, env, optimizer, device):
@@ -521,7 +639,10 @@ def _ppo_learner(args, env, optimizer, device):
     )
     engine = RolloutEngine(env, agent, args.unroll_length, seed=1)
     learner = PPOLearner(engine, agent, loss, config, optimizer, seed=2)
-    return learner, learner_loop
+    return learner, functools.partial(
+        learner_loop, num_checkpoints=args.num_checkpoints,
+        num_saved_models=args.num_saved_models,
+        num_snapshots=args.num_snapshots, logdir=args.logdir)
 
 
 def _sac_learner(args, env, optimizer, device):

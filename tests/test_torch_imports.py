@@ -14,7 +14,8 @@ import torch
 from seed_rl_torch import train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "seed_rl_tpu", "gymnasium"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorboardX",
+             "tensorboard", "seed_rl_tpu", "gymnasium"}
 
 
 def _port_sources():

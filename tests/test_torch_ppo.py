@@ -25,6 +25,7 @@ package (mirroring tests/test_ppo_learner.py).
 
 import functools
 import math
+import os
 
 import numpy as np
 import jax
@@ -613,11 +614,11 @@ def test_train_main_ppo_on_cpu(env, flags, mode, net_type):
      ValueError),
     (["--agent=ppo", "--env=catch", "--conv_net=impala_deep"], ValueError),
     (["--agent=vtrace", "--env=toy", "--lambda_=0.9"], ValueError),
-    (["--agent=ppo", "--env=toy", "--num_checkpoints=2"],
+    (["--agent=ppo", "--env=toy", "--run_mode=actor"], NotImplementedError),
+    (["--agent=ppo", "--env=toy", "--checkpoint_replay"],
      NotImplementedError),
-    (["--agent=ppo", "--env=toy", "--num_saved_models=1"],
+    (["--agent=ppo", "--env=toy", "--normalize_observations"],
      NotImplementedError),
-    (["--agent=ppo", "--env=toy", "--num_snapshots=1"], NotImplementedError),
     (["--agent=ppo", "--env=mujoco"], NotImplementedError),
     (["--agent=ppo", "--env=toy", "--run_mode=learner"], NotImplementedError),
 ])
@@ -625,3 +626,42 @@ def test_train_main_ppo_refusals(flags, error):
     with pytest.raises(error):
         train.main(["--device=cpu", "--num_envs=4", "--unroll_length=3",
                     "--total_environment_frames=12"] + flags)
+
+
+@pytest.mark.parametrize("flag", ["num_checkpoints", "num_saved_models",
+                                  "num_snapshots"])
+def test_train_main_ppo_action_points(flag, tmp_path, monkeypatch):
+    """Each action-point count fires at its 2 marks over 2 steps."""
+    from seed_rl_torch.utils import checkpoint as ckpt
+    from seed_rl_torch.utils.export import load_policy
+
+    forced = []
+    maybe_save = ckpt.CheckpointManager.maybe_save
+
+    def recording(self, step, learner, state, force=False):
+        if force:
+            forced.append(step)
+        return maybe_save(self, step, learner, state, force)
+
+    monkeypatch.setattr(ckpt.CheckpointManager, "maybe_save", recording)
+    learner, state, _ = train.main([
+        "--device=cpu", "--agent=ppo", "--env=toy", "--num_envs=4",
+        "--unroll_length=3", "--epochs_per_step=1", "--batches_per_step=2",
+        "--total_environment_frames=24", "--steps_per_call=1",
+        f"--logdir={tmp_path}", "--save_checkpoint_secs=1e9", f"--{flag}=2"])
+    assert state.step == 2
+    # The first offered save comes at once, the last one is forced.
+    assert forced == ([1, 2, 2] if flag == "num_checkpoints" else [2])
+    exported = (sorted(os.listdir(tmp_path / "saved_models"))
+                if flag == "num_saved_models" else [])
+    assert exported == (["12", "24"] if flag == "num_saved_models" else [])
+    assert [s.frames for s in learner.snapshots] == (
+        [12, 24] if flag == "num_snapshots" else [])
+    if exported:
+        ro = state.rollout
+        action, _ = load_policy(str(tmp_path / "saved_models" / "24"))(
+            ro.prev_action, ro.env_output, ())
+        with torch.no_grad():
+            want, _ = learner.agent.policy_step(
+                ro.prev_action, ro.env_output, (), deterministic=True)
+        assert torch.equal(action, want.action)

@@ -490,11 +490,41 @@ def test_train_main_r2d2_on_cpu():
     ["--agent=vtrace", "--env=discrete_match"],
     ["--agent=r2d2", "--env=discrete_match", "--replay_ratio=0.75"],
     ["--agent=r2d2", "--env=discrete_match", "--num_replicas=2"],
-    ["--agent=r2d2", "--env=discrete_match", "--run_mode=eval"],
+    ["--agent=r2d2", "--env=discrete_match", "--run_mode=actor"],
 ])
 def test_train_main_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(["--device=cpu"] + flags)
+
+
+def test_train_main_r2d2_eval_takes_the_greedy_step(monkeypatch):
+    """--run_mode=eval acts greedily: every step is deterministic, and two
+    evaluations agree."""
+    steps = []
+    policy_step = r2d2.R2D2Agent.policy_step
+
+    def recording(self, *args, deterministic=False, **kw):
+        steps.append(deterministic)
+        return policy_step(self, *args, deterministic=deterministic, **kw)
+
+    argv = ["--device=cpu", "--agent=r2d2", "--env=discrete_match",
+            "--num_envs=4", "--unroll_length=5", "--burn_in=2",
+            "--replay_buffer_size=64", "--replay_buffer_min_size=8",
+            "--run_mode=eval", "--eval_episodes=8"]
+    monkeypatch.setattr(r2d2.R2D2Agent, "policy_step", recording)
+    results = []
+    for _ in range(2):
+        steps.clear()
+        _, state, metrics = train.main(argv)
+        # The learner's init primes its rollout with overlap + 1 sampled
+        # steps; every step of the evaluation is greedy.
+        init_steps = 2 + 1
+        assert not any(steps[:init_steps])
+        assert len(steps) > init_steps and all(steps[init_steps:])
+        results.append(metrics)
+    assert results[0] == results[1]
+    assert results[0]["eval/num_episodes"] >= 8
+    assert results[0]["eval/restored_step"] == state.step == 0
 
 
 def test_train_main_r2d2_needs_the_card_unless_told(monkeypatch):

@@ -303,10 +303,36 @@ def test_train_main_on_cpu(env):
 
 
 @pytest.mark.parametrize("flag", [
-    "--agent=sac", "--env=atari", "--run_mode=eval", "--logdir=unused",
-    "--init_checkpoint=unused", "--normalize_observations",
+    "--agent=sac", "--env=atari", "--run_mode=actor", "--checkpoint_replay",
+    "--replay_ratio=0.5", "--normalize_observations",
 ])
 def test_train_main_refuses_what_is_not_ported(flag):
     argv = ["--agent=r2d2", "--env=discrete_match", "--device=cpu", flag]
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(argv)
+
+
+@pytest.mark.parametrize("flag", ["--run_mode=eval", "--logdir",
+                                  "--init_checkpoint"])
+def test_train_main_takes_the_checkpoint_flags(flag, tmp_path, capsys):
+    """What the refusals above held back until checkpoints were ported."""
+    argv = ["--agent=vtrace", "--env=toy", "--device=cpu", "--num_envs=8",
+            "--unroll_length=5", "--total_environment_frames=40",
+            "--steps_per_call=1", "--log_every_steps=1"]
+    train.main(argv + [f"--logdir={tmp_path / 'source'}"])
+    extra = {
+        "--run_mode=eval": [f"--logdir={tmp_path / 'source'}", flag],
+        "--logdir": [f"--logdir={tmp_path / 'source'}",
+                     "--total_environment_frames=80"],
+        "--init_checkpoint": [f"--logdir={tmp_path / 'warm'}",
+                              f"--init_checkpoint={tmp_path / 'source'}",
+                              "--total_environment_frames=80"],
+    }[flag]
+    capsys.readouterr()
+    _, state, metrics = train.main(argv + extra)
+    if flag == "--run_mode=eval":
+        assert state.step == 1 and metrics["eval/restored_step"] == 1
+        assert '"eval/restored_step": 1' in capsys.readouterr().out
+    else:  # resumed or warm-started at step 1, then one more step
+        assert state.step == 2
+        assert all(math.isfinite(float(v)) for v in metrics.values())
