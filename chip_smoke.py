@@ -114,17 +114,45 @@ Phases, in order; any failure exits non-zero:
      Each path prints the checkpoint's size on disk, the save and restore
      seconds, the export and load seconds and its own seconds, beside the
      card's name and power limit;
- 15. print the V-trace and n-step launches of each path, and the kernels
+ 15. the host data paths (host-process envs, policy steps on the card),
+     each through seed_rl_torch.train.main on synthetic_atari_host (numpy
+     envs on a thread pool), the launch counts reset just before each call:
+     (a) R2D2 at phase 6's knobs with DuelingLSTMDQNNet (LSTM 512), the
+         replay in host RAM (phase 9's 10k unrolls, or the largest multiple
+         of 1000 that fits a quarter of MemAvailable), --replay_ratio=0.75:
+         4 cycles, the first only filling the replay, plain and then with
+         --pipeline_host_rollouts; the batches of each cycle must be the
+         owed formula's, B2 launched once per insert and per batch, the
+         written-back priorities finite, the learner on the card, and B2
+         equal to its plain version on a batch of the run's own replay;
+     (b) V-trace with AtariPolicyNet at phase 7's shape, 3 steps plain (one
+         B1 launch each, B1 against its plain version on the run's last
+         unroll) and 3 pipelined (4 launches: the last unroll is trained
+         on), then --run_mode=eval on 32 host envs from the plain run's
+         parameters, twice: the two results must be equal;
+     (c) PPO with AtariPolicyNet at phase 11's knobs, 2 steps;
+     (d) SAC through host_offpolicy_loop on HostToyEnv (this script's numpy
+         toy env, Box actions), ActorCriticMLP (256, 256), replay ratio 4,
+         3 cycles;
+     (e) (a)'s path with --logdir --checkpoint_replay: 2 cycles, then a
+         resumed call of 2: the restored learner state and replay must
+         equal the saved ones bitwise; the replay's GB and its save and
+         restore seconds are printed.
+     Each path prints its cycle's ms split into host env stepping, policy
+     steps, copies, items, insert, sample wait and train ms per batch,
+     env frames/s, launches per cycle, the device idle share over one
+     profiled cycle, peak device memory and process RSS;
+ 16. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phase 14's, the n-step
-     kernel's those of both R2D2 paths and of phase 14's. The PPO and SAC
-     paths launch neither kernel: the PPO
-     advantage estimators are plain PyTorch and SAC has no recursion over
-     time, as in the JAX package.
+     those of all three V-trace paths and of phases 14's and 15's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's and 15's.
+     The PPO and SAC paths launch neither kernel: the PPO advantage
+     estimators are plain PyTorch and SAC has no recursion over time, as
+     in the JAX package.
 The TF32 settings of convolutions and matrix products are printed once;
 the script and the port leave PyTorch's defaults as they are.
 The last line of standard output is the device JSON:
@@ -142,6 +170,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 from typing import NamedTuple, Tuple
@@ -751,7 +780,6 @@ def run_r2d2(card, env):
     knobs; returns (the path's n-step launches, max |kernel - plain| on
     the run's own batch)."""
     from seed_rl_torch import train
-    from seed_rl_torch.agents import r2d2
     from seed_rl_torch.ops.cuda import nstep_kernel
 
     name = f"r2d2 {env}"
@@ -788,13 +816,35 @@ def run_r2d2(card, env):
           f"tensors on cuda; replay {state.replay.num_inserted} unrolls, "
           f"{replay_mb:.1f} MB")
 
-    # The kernel on a batch sampled from this run's replay, against the
-    # plain version, with the gradient of the summed loss in the online Q
-    # values; loss and priorities must be finite.
     config = learner.config
     _, _, items = learner.replay.sample(
         state.replay, learner.generator, config.batch_size,
         config.priority_exponent)
+    err = check_nstep_on_batch(name, learner, items)
+
+    # A step is one rollout + insert and one train batch.
+    state, step_s, (insert_s, batch_s) = time_train_steps(
+        state, learner.warmup_step,
+        lambda s: learner.train_on_batch(s)[0], R2D2_TIMED_STEPS)
+    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
+          f"{learner.frames_per_step / step_s:.1f} env frames/s "
+          f"(num_envs={R2D2_ENVS}, unroll_length={R2D2_UNROLL}, burn_in="
+          f"{R2D2_BURN_IN}, batch 64, {R2D2_PATHS[env]})")
+    print(f"{name} per step on {card}: rollout + insert "
+          f"{insert_s * 1e3:.3f} ms, train batch (sample, burn-in + unrolls, "
+          f"loss, backward, clip, Adam, priorities) {batch_s * 1e3:.3f} ms")
+    profile_device_time(learner, state, step_s, name)
+    _print_path_end(name, start)
+    return launches, err
+
+
+def check_nstep_on_batch(name, learner, items):
+    """The n-step kernel on a batch of a run's own replay items, against
+    the plain version, with the gradient of the summed loss in the online
+    Q values; loss and priorities must be finite. Returns max |err|."""
+    from seed_rl_torch.agents import r2d2
+
+    config = learner.config
     with torch.no_grad():
         q, *args = r2d2.loss_inputs(
             learner.net, learner.target_net, items.agent_state,
@@ -815,21 +865,7 @@ def run_r2d2(card, env):
     print(f"nstep {name} on the run's own sampled batch: dloss/dq max|err|="
           f"{float((g_kernel - g_plain).abs().max()):.3e} "
           f"(tol {NSTEP_GRAD_TOL})")
-
-    # A step is one rollout + insert and one train batch.
-    state, step_s, (insert_s, batch_s) = time_train_steps(
-        state, learner.warmup_step,
-        lambda s: learner.train_on_batch(s)[0], R2D2_TIMED_STEPS)
-    print(f"{name} train step on {card}: {step_s * 1e3:.3f} ms, "
-          f"{learner.frames_per_step / step_s:.1f} env frames/s "
-          f"(num_envs={R2D2_ENVS}, unroll_length={R2D2_UNROLL}, burn_in="
-          f"{R2D2_BURN_IN}, batch 64, {R2D2_PATHS[env]})")
-    print(f"{name} per step on {card}: rollout + insert "
-          f"{insert_s * 1e3:.3f} ms, train batch (sample, burn-in + unrolls, "
-          f"loss, backward, clip, Adam, priorities) {batch_s * 1e3:.3f} ms")
-    profile_device_time(learner, state, step_s, name)
-    _print_path_end(name, start)
-    return launches, err
+    return err
 
 
 def run_ppo(card, name):
@@ -917,7 +953,7 @@ def run_sac(card, name):
     ]
     # Count the polyak moves inside train.main.
     moves = []
-    move_target = sac.SACLearner._move_target
+    move_target = sac.SACUpdate._move_target
 
     def counted(learner):
         moves.append(learner)
@@ -926,12 +962,12 @@ def run_sac(card, name):
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     start = time.perf_counter()
-    sac.SACLearner._move_target = counted
+    sac.SACUpdate._move_target = counted
     try:
         learner, state, metrics = train.main(argv)
         torch.cuda.synchronize()
     finally:
-        sac.SACLearner._move_target = move_target
+        sac.SACUpdate._move_target = move_target
     wall_s = time.perf_counter() - start
     launches = {"vtrace": vtrace_kernel.launches,
                 "nstep": nstep_kernel.launches}
@@ -1423,6 +1459,670 @@ def run_checkpoint_paths(smi):
     return vtrace, nstep
 
 
+# Phase 15: the host data paths. R2D2 at the Atari R2D2 knobs of phases 6
+# and 9 on host envs; the replay in host RAM at phase 9's 10k unrolls, cut
+# to the largest multiple of 1000 that fits a quarter of MemAvailable.
+# A call runs HOST_R2D2_CYCLES cycles: the minimum size is one cycle's
+# items + 1, so the first cycle only fills the replay.
+HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 4, 2, 64
+HOST_R2D2_TRAINING = R2D2_ENVS - R2D2_EVAL_ENVS
+HOST_R2D2_MIN = HOST_R2D2_TRAINING + 1
+HOST_REPLAY_RATIO = 0.75  # the JAX CLI's default
+HOST_REPLAY_UNROLLS = 10_000
+# One replay item at that shape: 121 steps of an 84x84 uint8 frame, int32
+# previous and played actions, f32 reward, bool done and abandoned, int32
+# episode step and 18 f32 Q values; the 84x84x3 frame history and the LSTM
+# 512's (c, h).
+HOST_REPLAY_ITEM_BYTES = (121 * (84 * 84 + 4 + 4 + 1 + 1 + 4 + 4 + 18 * 4)
+                          + 84 * 84 * 3 + 2 * 512 * 4)
+# V-trace at phase 7's shape, 3 steps plain and 3 pipelined, then a
+# deterministic eval of HOST_EVAL_EPISODES 1000-step episodes on
+# HOST_EVAL_ENVS envs, twice.
+HOST_VTRACE_ENVS, HOST_VTRACE_UNROLL, HOST_VTRACE_STEPS = 1024, 32, 3
+HOST_EVAL_ENVS = HOST_EVAL_EPISODES = 32
+# SAC on the script's own host env: envs, unroll, batch, replay ratio (the
+# reference SAC's), cycles.
+HOST_SAC_ENVS, HOST_SAC_UNROLL, HOST_SAC_BATCH = 256, 1, 256
+HOST_SAC_RATIO, HOST_SAC_CYCLES = 4.0, 3
+
+
+class HostToyEnv:
+    """A numpy twin of the toy env with gymnasium's API: match the observed
+    random target with a Box(3) action, 3-step episodes."""
+
+    def __init__(self, n_actions=3, horizon=3):
+        from seed_rl_torch.envs.spaces import Box
+
+        self.n_actions, self.horizon = n_actions, horizon
+        self.observation_space = Box(-np.inf, np.inf, (n_actions + 1,))
+        self.action_space = Box(-1.0, 1.0, (n_actions,))
+        self._rng = np.random.RandomState(0)
+
+    def _obs(self):
+        self._target = self._rng.uniform(-1, 1, self.n_actions).astype(
+            np.float32)
+        return np.concatenate([self._target, [0.0]]).astype(np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self.t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        reward = -float(np.sum((action - self._target) ** 2))
+        self.t += 1
+        return self._obs(), reward, self.t >= self.horizon, False, {}
+
+    def close(self):
+        pass
+
+
+def _host_replay_unrolls():
+    """HOST_REPLAY_UNROLLS, or the largest multiple of 1000 whose items fit
+    a quarter of MemAvailable; and MemAvailable in bytes."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    unrolls = HOST_REPLAY_UNROLLS
+    if unrolls * HOST_REPLAY_ITEM_BYTES > avail / 4:
+        unrolls = int(avail / 4 // HOST_REPLAY_ITEM_BYTES // 1000 * 1000)
+    if unrolls < (HOST_R2D2_CYCLES + 1) * HOST_R2D2_TRAINING:
+        raise RuntimeError(f"{avail / 1e9:.1f} GB available: too little "
+                           "host RAM for the host R2D2 replay")
+    return unrolls, avail
+
+
+def _rss_gb():
+    """The process's resident set now (VmRSS, or "not measured" where the
+    kernel does not report it) and at its peak (getrusage), GB."""
+    import resource
+
+    now = "not measured"
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = f"{int(line.split()[1]) * 1024 / 1e9:.2f}"
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return now, peak
+
+
+def _owed_batches(cycles, training, batch, ratio, min_size, size):
+    """The batches host_offpolicy_loop owes each cycle (its float carry)."""
+    owed, inserted, out = 0.0, 0, []
+    for _ in range(cycles):
+        inserted = min(inserted + training, size)
+        n = 0
+        if inserted >= min_size:
+            owed += ratio * training / batch
+            for _ in range(int(owed)):
+                owed -= 1.0
+                n += 1
+        out.append(n)
+    return out
+
+
+class HostTimer:
+    """While a phase-15 call runs, wraps the host data path's methods and
+    sums their host seconds: inside rollouts, host env stepping, the copies
+    (observations up; actions down, after waiting for the policy step,
+    which counts as policy time) and whole rollouts; items with their
+    initial priorities, inserts, sample waits, train batches (with the
+    priority write-back that waits for them), updates, replay saves and
+    restores. Marks the time of each insert (off-policy) or update
+    (on-policy), and counts batches per insert. With ``profile_rollout``
+    the device activity from the start of that rollout to the start of the
+    next, or to the end of the call (one cycle on a plain run's main
+    thread), is profiled; the window's wall time is taken before the
+    profiler stops, and its events are summed after the call."""
+
+    def __init__(self, profile_rollout=None):
+        self.profile_rollout = profile_rollout
+        self.window_ms = None
+
+    def _patch(self, owner, name, make):
+        original = getattr(owner, name)
+        self._saved.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def _timed(self, key, before=None, after=None, only_in_rollout=False):
+        timer = self
+
+        def make(original):
+            def wrapped(*args, **kw):
+                if only_in_rollout and not getattr(timer._local, "active",
+                                                   False):
+                    return original(*args, **kw)
+                if before is not None:
+                    before(*args)
+                t0 = time.perf_counter()
+                result = original(*args, **kw)
+                timer.s[key] += time.perf_counter() - t0
+                if after is not None:
+                    after(result, *args)
+                return result
+            return wrapped
+        return make
+
+    def __enter__(self):
+        from seed_rl_torch.agents import r2d2, sac, vtrace
+        from seed_rl_torch.agents.ppo import learner as ppo
+        from seed_rl_torch.envs.host import HostBatchedEnv
+        from seed_rl_torch.replay_host import HostReplayBuffer
+        from seed_rl_torch.rollout_host import HostRolloutEngine
+
+        self.s = dict.fromkeys(
+            ("env", "copy", "policy_wait", "rollout", "items", "insert",
+             "sample_wait", "train", "update", "save", "restore"), 0.0)
+        self.batches, self.marks, self.rollouts, self.saves = [], [], 0, 0
+        self.replay = self.last_unroll = self._prof = None
+        self._profiling = False
+        self._saved, self._local = [], threading.local()
+
+        def to_host(original):
+            def copy_down(engine, action):
+                if not getattr(self._local, "active", False):
+                    return original(engine, action)
+                t0 = time.perf_counter()
+                if action.is_cuda:
+                    torch.cuda.current_stream().synchronize()
+                t1 = time.perf_counter()
+                out = original(engine, action)
+                self.s["policy_wait"] += t1 - t0
+                self.s["copy"] += time.perf_counter() - t1
+                return out
+            return copy_down
+
+        def rollout_start(engine, state):
+            self.rollouts += 1
+            self._local.active = True
+            if self.rollouts == self.profile_rollout:
+                torch.cuda.synchronize()
+                self._prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                self._prof.start()
+                self._profiling = True
+                self._t0 = time.perf_counter()
+            elif self._profiling:
+                self._stop_profile()
+
+        def rollout_end(result, engine, state):
+            self._local.active = False
+            self.last_unroll = result[1]
+
+        def inserted(result, replay, items, priorities):
+            self.replay = replay
+            self.batches.append(0)
+            self.marks.append(time.perf_counter())
+
+        def trained(result, *args):
+            self.batches[-1] += 1
+
+        def update_start(*args):
+            self.marks.append(time.perf_counter())
+
+        def saved(*args):
+            self.saves += 1
+
+        engine = HostRolloutEngine
+        self._patch(HostBatchedEnv, "step",
+                    self._timed("env", only_in_rollout=True))
+        self._patch(engine, "_to_device",
+                    self._timed("copy", only_in_rollout=True))
+        self._patch(engine, "_to_host", to_host)
+        self._patch(engine, "rollout",
+                    self._timed("rollout", rollout_start, rollout_end))
+        for learner in (r2d2.R2D2HostLearner, sac.SACHostLearner):
+            self._patch(learner, "make_items_and_priorities",
+                        self._timed("items"))
+            self._patch(learner, "train_on_batch",
+                        self._timed("train", after=trained))
+        for learner in (vtrace.VTraceLearner, ppo.PPOLearner):
+            self._patch(learner, "update",
+                        self._timed("update", before=update_start))
+        self._patch(HostReplayBuffer, "insert",
+                    self._timed("insert", after=inserted))
+        self._patch(HostReplayBuffer, "wait_sample",
+                    self._timed("sample_wait"))
+        self._patch(HostReplayBuffer, "update_priorities",
+                    self._timed("train"))
+        self._patch(HostReplayBuffer, "save", self._timed("save",
+                                                          after=saved))
+        self._patch(HostReplayBuffer, "restore", self._timed("restore"))
+        return self
+
+    def _stop_profile(self):
+        torch.cuda.synchronize()
+        self.window_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.stop()
+        self._profiling = False
+
+    def __exit__(self, *exc):
+        if self._profiling:
+            self._stop_profile()
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+
+    def report(self, name, frames_per_cycle, launches, smi):
+        """Prints the cycle's split: the cycle's wall time (the profiled
+        window, or without one the last interval between inserts, or
+        updates: a rollout and the training of a cycle), rollout parts per
+        rollout, main-thread parts per cycle. Returns the cycle's ms."""
+        s, cycles = self.s, len(self.marks)
+        if self.window_ms is not None:
+            cycle_ms, source = self.window_ms, "the profiled cycle"
+        else:
+            cycle_ms = float(np.diff(self.marks)[-1]) * 1e3
+            source = "the main thread's last cycle"
+        rollouts = max(self.rollouts, 1)
+
+        def per(key, n=cycles):
+            return s[key] / n * 1e3
+
+        policy = (s["rollout"] - s["env"] - s["copy"]) / rollouts * 1e3
+        parts = (f"a rollout {per('rollout', rollouts):.1f} ms: host env "
+                 f"stepping {per('env', rollouts):.1f} ms, policy steps "
+                 f"{policy:.1f} ms (of which waiting for the device before "
+                 f"the action copy {per('policy_wait', rollouts):.1f} ms), "
+                 f"copies {per('copy', rollouts):.1f} ms")
+        if self.batches:
+            batches = sum(self.batches)
+            parts += (f"; a cycle's items + initial priorities "
+                      f"{per('items'):.1f} ms, insert {per('insert'):.1f} "
+                      f"ms, sample wait {per('sample_wait'):.1f} ms; train "
+                      f"{s['train'] / max(batches, 1) * 1e3:.1f} ms per "
+                      f"batch, {batches / cycles:.2f} batches per cycle")
+        else:
+            parts += f"; update {per('update'):.1f} ms"
+        rss, hwm = _rss_gb()
+        print(f"{name}: cycle {cycle_ms:.1f} ms ({source}; averaged over "
+              f"{self.rollouts} rollouts and {cycles} cycles: {parts}); "
+              f"{frames_per_cycle / cycle_ms * 1e3:.1f} env frames/s; "
+              f"hand-kernel launches per cycle "
+              f"{ {k: v / cycles for k, v in launches.items()} }; peak "
+              f"device memory {_peak_memory_gb():.3f} GB; process RSS "
+              f"{rss} GB (peak {hwm:.2f} GB) ({smi})")
+        if self.window_ms is not None:
+            kernels = _device_kernels(self._prof)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            count = sum(e.count for e in kernels)
+            print(f"{name} profiler: one cycle of {self.window_ms:.1f} ms "
+                  f"holds {busy:.3f} ms of device work in {count:.0f} "
+                  f"launches: idle share {1 - busy / self.window_ms:.3f} "
+                  f"({smi})")
+        return cycle_ms
+
+
+def _host_r2d2_argv(replay_unrolls, cycles):
+    return [
+        "--agent=r2d2", "--env=synthetic_atari_host",
+        f"--num_envs={R2D2_ENVS}", f"--num_eval_envs={R2D2_EVAL_ENVS}",
+        f"--unroll_length={R2D2_UNROLL}", f"--burn_in={R2D2_BURN_IN}",
+        f"--batch_size={HOST_R2D2_BATCH}", "--n_steps=5",
+        "--discounting=0.997", "--learning_rate=1e-4", "--clip_norm=80",
+        f"--replay_buffer_size={replay_unrolls}",
+        f"--replay_buffer_min_size={HOST_R2D2_MIN}",
+        f"--replay_ratio={HOST_REPLAY_RATIO}",
+        f"--total_environment_frames={cycles * R2D2_ENVS * R2D2_UNROLL}",
+        "--log_every_steps=1",
+    ]
+
+
+def _check_host_offpolicy(name, learner, state, timer, launches, want):
+    """Batches per cycle as owed, one B2 launch per insert and per batch,
+    finite written-back priorities, the learner's tensors on the card."""
+    if timer.batches != want:
+        raise RuntimeError(f"{name}: batches per cycle {timer.batches}, the "
+                           f"owed formula's {want}")
+    if state.step != sum(want):
+        raise RuntimeError(f"{name}: step {state.step}, want {sum(want)}")
+    if launches != {"vtrace": 0, "nstep": len(want) + sum(want)}:
+        raise RuntimeError(f"{name}: kernel launches {launches}, want one "
+                           f"B2 per insert ({len(want)}) and per batch "
+                           f"({sum(want)})")
+    replay = timer.replay
+    priorities = replay._priorities[:replay.num_inserted]
+    if not np.isfinite(priorities).all():
+        raise RuntimeError(f"{name}: non-finite priorities")
+    tensors = learner.parameters() + learner.state_tensors(state)
+    off_card = [t.device for t in tensors if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
+
+
+def run_host_r2d2(smi, replay_unrolls):
+    """Phase 15 (a): R2D2 on synthetic_atari_host through train.main,
+    plain then pipelined; returns (B2 launches, max |kernel - plain|)."""
+    from seed_rl_torch import train
+
+    want = _owed_batches(HOST_R2D2_CYCLES, HOST_R2D2_TRAINING,
+                         HOST_R2D2_BATCH, HOST_REPLAY_RATIO, HOST_R2D2_MIN,
+                         replay_unrolls)
+    frames = R2D2_ENVS * R2D2_UNROLL
+    total, err = 0, 0.0
+    for mode, extra in (("plain", []), ("pipelined",
+                                        ["--pipeline_host_rollouts"])):
+        name = f"host r2d2 synthetic_atari_host {mode}"
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        start = time.perf_counter()
+        # Plain: profile the third cycle (a trained one), rollout to
+        # rollout; the pipelined run's rollouts run on another thread.
+        with HostTimer(profile_rollout=3 if mode == "plain" else None) as t:
+            learner, state, logs = train.main(
+                _host_r2d2_argv(replay_unrolls, HOST_R2D2_CYCLES) + extra)
+            torch.cuda.synchronize()
+        launches = _launches()
+        total += launches["nstep"]
+        _check_host_offpolicy(name, learner, state, t, launches, want)
+        _finite(name, logs)
+        replay = t.replay
+        print(f"{name}: {HOST_R2D2_CYCLES} cycles ({R2D2_ENVS} envs, "
+              f"{R2D2_EVAL_ENVS} eval, unroll {R2D2_UNROLL} + burn-in "
+              f"{R2D2_BURN_IN}), batches per cycle {t.batches} as owed "
+              f"({HOST_REPLAY_RATIO} x {HOST_R2D2_TRAINING} / "
+              f"{HOST_R2D2_BATCH} a cycle); "
+              f"B2 launches {launches['nstep']}; replay {replay.num_inserted}"
+              f" of {replay.size} unrolls, {replay.nbytes() / 1e9:.3f} GB "
+              f"allocated in host RAM; losses/td="
+              f"{float(logs['losses/td']):.6f} ({smi})")
+        t.report(name, frames, launches, smi)
+        if mode == "plain":
+            _, _, items = replay.sample(HOST_R2D2_BATCH,
+                                        learner.priority_exponent)
+            err = check_nstep_on_batch(name, learner, items)
+        del replay, t, learner
+        _print_path_end(name, start)
+    return total, err
+
+
+def run_host_vtrace(smi, logdir):
+    """Phase 15 (b): V-trace on synthetic_atari_host through train.main,
+    plain (into ``logdir``) then pipelined, then --run_mode=eval twice from
+    the plain run's parameters; returns (B1 launches, max |kernel -
+    plain|)."""
+    from seed_rl_torch import train
+    from seed_rl_torch.agents import vtrace as vtrace_agent
+    from seed_rl_torch.ops import vtrace as plain
+    from seed_rl_torch.ops.cuda import vtrace_kernel
+
+    envs, unroll, steps = HOST_VTRACE_ENVS, HOST_VTRACE_UNROLL, \
+        HOST_VTRACE_STEPS
+    base = ["--agent=vtrace", "--env=synthetic_atari_host",
+            f"--num_envs={envs}", f"--unroll_length={unroll}",
+            f"--total_environment_frames={steps * envs * unroll}",
+            "--log_every_steps=1"]
+    total, err = 0, 0.0
+    for mode, extra in (("plain", [f"--logdir={logdir}"]),
+                        ("pipelined", ["--pipeline_host_rollouts"])):
+        name = f"host vtrace synthetic_atari_host {mode}"
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        start = time.perf_counter()
+        with HostTimer(profile_rollout=2 if mode == "plain" else None) as t:
+            learner, state, metrics = train.main(base + extra)
+            torch.cuda.synchronize()
+        launches = _launches()
+        total += launches["vtrace"]
+        # Pipelined, the last collected unroll is trained on too.
+        want = steps + (mode == "pipelined")
+        if state.step != want or launches != {"vtrace": want, "nstep": 0}:
+            raise RuntimeError(f"{name}: {state.step} steps, launches "
+                               f"{launches}; want {want} steps, one B1 each")
+        _finite(name, metrics)
+        tensors = list(learner.parameters()) + learner.state_tensors(state)
+        if any(x.device.type != "cuda" for x in tensors):
+            raise RuntimeError(f"{name}: tensors off the card")
+        t.report(name, envs * unroll, launches, smi)
+        if mode == "plain":
+            with torch.no_grad():
+                inputs, _ = vtrace_agent.vtrace_inputs(
+                    learner.config, learner.agent,
+                    learner.agent.distribution, t.last_unroll)
+            got = vtrace_kernel.from_importance_weights(**inputs)
+            ref = plain.from_importance_weights(**inputs)
+            torch.cuda.synchronize()
+            for g, w in zip(got, ref):
+                torch.testing.assert_close(g, w, rtol=VTRACE_TOL,
+                                           atol=VTRACE_TOL)
+                err = max(err, float((g - w).abs().max()))
+            print(f"{name}: vtrace on the run's last unroll "
+                  f"{list(inputs['rewards'].shape)} matches the plain "
+                  f"version, max|err|={err:.3e} (tol {VTRACE_TOL})")
+        del t, learner
+        _print_path_end(name, start)
+
+    results = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _reset_launch_counts()
+        _, _, metrics = train.main([
+            "--agent=vtrace", "--env=synthetic_atari_host",
+            f"--num_envs={HOST_EVAL_ENVS}", f"--unroll_length={unroll}",
+            "--run_mode=eval", f"--eval_episodes={HOST_EVAL_EPISODES}",
+            f"--init_checkpoint={logdir}"])
+        if any(_launches().values()):
+            raise RuntimeError(f"host eval launched {_launches()}")
+        print(f"host vtrace eval: {metrics} in {time.perf_counter() - t0:.3f}"
+              f" s ({HOST_EVAL_ENVS} host envs, the plain run's parameters, "
+              f"deterministic) ({smi})")
+        results.append(metrics)
+    if results[0]["eval/num_episodes"] < HOST_EVAL_EPISODES:
+        raise RuntimeError(f"host eval ran {results[0]} episodes")
+    if results[0] != results[1]:
+        raise RuntimeError(f"host eval is not repeatable: {results}")
+    print("host vtrace eval: the two runs from one seed are equal")
+    return total, err
+
+
+def run_host_ppo(smi):
+    """Phase 15 (c): PPO on synthetic_atari_host at phase 11's knobs."""
+    from seed_rl_torch import train
+
+    path = PPO_PATHS["ppo_synthetic_atari"]
+    name = "host ppo synthetic_atari_host"
+    argv = ["--agent=ppo", "--env=synthetic_atari_host",
+            *path.flags[1:], f"--num_envs={path.envs}",
+            f"--unroll_length={path.unroll}",
+            f"--epochs_per_step={path.epochs}",
+            f"--batches_per_step={path.minibatches}",
+            "--total_environment_frames="
+            f"{PPO_STEPS * path.envs * path.unroll}",
+            "--log_every_steps=1"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    # Profile the second step, to the end of the call.
+    with HostTimer(profile_rollout=2) as t:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    launches = _launches()
+    updates = PPO_STEPS * path.epochs * path.minibatches
+    if state.step != PPO_STEPS or learner.optimizer.count != updates:
+        raise RuntimeError(f"{name}: {state.step} steps, "
+                           f"{learner.optimizer.count} updates")
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: launched {launches}")
+    _finite(name, metrics)
+    t.report(name, path.envs * path.unroll, launches, smi)
+    _print_path_end(name, start)
+
+
+def run_host_sac(smi, device):
+    """Phase 15 (d): SACHostLearner through host_offpolicy_loop on
+    HostToyEnv, ActorCriticMLP at its default width, replay ratio 4."""
+    import functools
+
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch import optim
+    from seed_rl_torch.agents import sac
+    from seed_rl_torch.envs.host import HostBatchedEnv
+    from seed_rl_torch.host_offpolicy import host_offpolicy_loop
+    from seed_rl_torch.models import ActorCriticMLP
+    from seed_rl_torch.replay_host import HostReplayBuffer
+    from seed_rl_torch.rollout_host import HostRolloutEngine
+
+    name = "host sac HostToyEnv"
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    envs, unroll, batch = HOST_SAC_ENVS, HOST_SAC_UNROLL, HOST_SAC_BATCH
+    env = HostBatchedEnv(lambda i: HostToyEnv(), envs, num_threads=16)
+    try:
+        dist = pd.get_parametric_distribution_for_action_space(
+            env.action_space)
+        net = ActorCriticMLP(dist.param_size, env.observation_spec(),
+                             n_critics=2, device=device)
+        agent = sac.SACAgent(net, dist)
+        config = sac.SACConfig(batch_size=batch, unroll_length=unroll,
+                               replay_buffer_min_size=envs)
+        learner = sac.SACHostLearner(
+            agent, config, functools.partial(
+                optim.ClippedAdam, learning_rate=3e-4, clip_norm=40.0),
+            envs, unroll, seed=2)
+        engine = HostRolloutEngine(env, agent, unroll, device=device, seed=1)
+        replay = HostReplayBuffer(config.replay_buffer_size, 0.0,
+                                  device=device)
+        with HostTimer(profile_rollout=2) as t:
+            state, logs = host_offpolicy_loop(
+                learner, engine, replay,
+                HOST_SAC_CYCLES * envs * unroll, replay_ratio=HOST_SAC_RATIO,
+                replay_buffer_min_size=envs)
+            torch.cuda.synchronize()
+    finally:
+        env.close()
+    want = _owed_batches(HOST_SAC_CYCLES, envs, batch, HOST_SAC_RATIO, envs,
+                         config.replay_buffer_size)
+    if t.batches != want or state.step != sum(want) or (
+            learner.optimizer.count != sum(want)):
+        raise RuntimeError(f"{name}: batches {t.batches}, want {want}")
+    if any(_launches().values()):
+        raise RuntimeError(f"{name}: launched {_launches()}")
+    _finite(name, logs)
+    tensors = learner.parameters() + learner.state_tensors(state)
+    if any(x.device.type != "cuda" for x in tensors):
+        raise RuntimeError(f"{name}: tensors off the card")
+    print(f"{name}: {HOST_SAC_CYCLES} cycles of {envs} envs x {unroll}, "
+          f"batches per cycle {t.batches} as owed (ratio {HOST_SAC_RATIO}, "
+          f"batch {batch}), ActorCriticMLP (256, 256), 2 critics; "
+          f"losses/total={float(logs['losses/total']):.6f} ({smi})")
+    t.report(name, envs * unroll, _launches(), smi)
+    _print_path_end(name, start)
+
+
+def run_host_resume(smi, replay_unrolls, logdir):
+    """Phase 15 (e): (a)'s path with --logdir --checkpoint_replay: 2
+    cycles, a save, then a resume of 2 cycles; the restored learner state
+    and replay must equal the saved ones bitwise. Returns B2 launches."""
+    from seed_rl_torch import train
+    from seed_rl_torch.replay_host import HostReplayBuffer
+    from seed_rl_torch.utils import checkpoint as ckpt
+
+    name = "host r2d2 resume"
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    argv = _host_r2d2_argv(replay_unrolls, HOST_RESUME_CYCLES) + [
+        f"--logdir={logdir}", "--checkpoint_replay"]
+    frames = R2D2_ENVS * R2D2_UNROLL
+    _reset_launch_counts()
+    with HostTimer() as first:
+        learner, state, _ = train.main(argv)
+        torch.cuda.synchronize()
+    launches = [_launches()]
+    saved = ckpt.to_saveable(learner.checkpoint_state(state))
+    saved_replay = first.replay
+    del learner
+
+    checked = []
+    restore = HostReplayBuffer.restore
+
+    def compare_restore(replay, directory):
+        if not restore(replay, directory):
+            return False
+        n = saved_replay.num_inserted
+        if (replay.num_inserted, replay.insert_index) != (
+                n, saved_replay.insert_index):
+            raise RuntimeError(f"{name}: restored cursors differ")
+        if not np.array_equal(replay._priorities, saved_replay._priorities):
+            raise RuntimeError(f"{name}: restored priorities differ")
+        # Rows past num_inserted were never written in either: zeros.
+        for got, want in zip(replay._storage, saved_replay._storage,
+                             strict=True):
+            if (got.dtype != want.dtype or got.shape != want.shape
+                    or not np.array_equal(got[:n], want[:n])):
+                raise RuntimeError(f"{name}: a restored replay leaf differs")
+        checked.append(replay.nbytes())
+        return True
+
+    restored = []
+    restore_or = ckpt.CheckpointManager.restore_or
+
+    def record_restore(manager, learner, state):
+        state = restore_or(manager, learner, state)
+        restored.append(ckpt.to_saveable(learner.checkpoint_state(state)))
+        return state
+
+    _reset_launch_counts()
+    HostReplayBuffer.restore = compare_restore
+    ckpt.CheckpointManager.restore_or = record_restore
+    try:
+        with HostTimer() as second:
+            learner, state, _ = train.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        HostReplayBuffer.restore = restore
+        ckpt.CheckpointManager.restore_or = restore_or
+    launches.append(_launches())
+    if not checked or len(restored) != 1:
+        raise RuntimeError(f"{name}: nothing restored")
+    tensors = _assert_trees_equal(restored[0], saved,
+                                  f"{name}: the restored learner state")
+    want = [
+        _owed_batches(HOST_RESUME_CYCLES, HOST_R2D2_TRAINING,
+                      HOST_R2D2_BATCH, HOST_REPLAY_RATIO, HOST_R2D2_MIN,
+                      replay_unrolls),
+        # Restored full enough to train from the first cycle; the owed
+        # carry starts at 0 again, as in the JAX package.
+        _owed_batches(HOST_RESUME_CYCLES, HOST_R2D2_TRAINING,
+                      HOST_R2D2_BATCH, HOST_REPLAY_RATIO, 0, replay_unrolls)]
+    got = [first.batches, second.batches]
+    want_launches = [{"vtrace": 0, "nstep": len(w) + sum(w)} for w in want]
+    if got != want or launches != want_launches:
+        raise RuntimeError(f"{name}: batches {got}, launches {launches}; "
+                           f"want {want}, {want_launches}")
+    if second.replay.num_inserted != (
+            2 * HOST_RESUME_CYCLES * HOST_R2D2_TRAINING):
+        raise RuntimeError(f"{name}: {second.replay.num_inserted} items "
+                           "after the resume")
+    gb = saved_replay.nbytes() * saved_replay.num_inserted / (
+        saved_replay.size * 1e9)
+    print(f"{name}: saved the replay ({saved_replay.num_inserted} unrolls, "
+          f"{gb:.3f} GB at the last save) in {first.s['save']:.3f} s over "
+          f"{first.saves} saves, restored it in "
+          f"{second.s['restore']:.3f} s: equal to the saved one bitwise "
+          f"({len(saved_replay._storage)} leaves, priorities, cursors); "
+          f"the learner state's {tensors} tensors equal bitwise; batches "
+          f"per cycle {got}, B2 launches {launches} ({smi})")
+    _print_path_end(name, start)
+    return sum(x["nstep"] for x in launches)
+
+
+def run_host_paths(smi, device):
+    """Phase 15; returns (B1 launches, B2 launches, B1 max err, B2 max
+    err)."""
+    unrolls, avail = _host_replay_unrolls()
+    print(f"host replay: {unrolls} unrolls x {HOST_REPLAY_ITEM_BYTES} bytes "
+          f"= {unrolls * HOST_REPLAY_ITEM_BYTES / 1e9:.2f} GB, within a "
+          f"quarter of MemAvailable {avail / 1e9:.1f} GB ({smi})")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as root:
+        nstep, nstep_err = run_host_r2d2(smi, unrolls)
+        vtrace, vtrace_err = run_host_vtrace(smi, os.path.join(root, "vt"))
+        run_host_ppo(smi)
+        run_host_sac(smi, device)
+        nstep += run_host_resume(smi, unrolls, os.path.join(root, "r2d2"))
+    return vtrace, nstep, vtrace_err, nstep_err
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -1554,6 +2254,13 @@ def main():
     vtrace_launches["checkpoints"], nstep_launches["checkpoints"] = (
         run_checkpoint_paths(smi))
     print(f"phase 14 (checkpoints, logs, export, eval, profile) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["host"], nstep_launches["host"], vtrace_host_err,
+     nstep_host_err) = run_host_paths(smi, device)
+    vtrace_err = max(vtrace_err, vtrace_host_err)
+    nstep_err = max(nstep_err, nstep_host_err)
+    print(f"phase 15 (the host data paths) took "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "

@@ -145,7 +145,7 @@ class PPOLearner:
         self.agent = agent
         self.loss = loss
         self.config = config
-        self.device = engine.env.device
+        self.device = engine.device
         self.loss_params = pytree.tree_map(
             lambda t: torch.nn.Parameter(t.to(self.device)),
             loss.init_params(self.device))
@@ -165,7 +165,7 @@ class PPOLearner:
 
     def state_tensors(self, state: PPOTrainState) -> List[torch.Tensor]:
         return pytree.tree_leaves((
-            state.norm_state, state.rollout, state.stats,
+            state.norm_state, state.rollout or (), state.stats,
             getattr(self.agent, "obs_norm", ())))
 
     def checkpoint_state(self, state: PPOTrainState) -> Dict[str, Any]:
@@ -197,7 +197,8 @@ class PPOLearner:
     def init(self) -> PPOTrainState:
         return PPOTrainState(
             norm_state=self.loss.init_norm_state(self.device),
-            rollout=self.engine.init(),
+            # A host engine's rollout state stays outside (host_loop.py).
+            rollout=None if self.engine.is_host else self.engine.init(),
             stats=episode_stats.init(self.engine.env.num_envs, self.device),
             step=0,
         )

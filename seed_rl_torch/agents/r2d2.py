@@ -26,8 +26,14 @@ state in a functional train state, here the online network is the agent's
 module, the target network a second module of the same type, and the
 optimizer holds its state; the train state carries the replay, the
 rollout, both episode-stat windows and the step count (a host int, so the
-target sync needs no device sync). ``R2D2HostLearner`` (host envs and
-host-RAM replay) waits for the host-env slice.
+target sync needs no device sync).
+
+``R2D2HostLearner`` is the split learner of the host data path
+(``host_offpolicy.py``): the replay lives in host RAM
+(``replay_host.HostReplayBuffer``), and the loop turns each unroll into
+items and initial priorities, and trains on batches it samples, through
+the learner. Both learners share the update (``R2D2Update``): the nets,
+the optimizer, and one batch's burn-in loss, clip and Adam step.
 """
 
 import copy
@@ -283,7 +289,86 @@ def _mean_metrics(history: List[Dict[str, torch.Tensor]]):
     }
 
 
-class R2D2Learner:
+class R2D2Update:
+    """The online and target nets, the optimizer and one batch's update,
+    shared by ``R2D2Learner`` and ``R2D2HostLearner``.
+
+    Args:
+      agent: an ``R2D2Agent`` whose network holds the online parameters.
+      config: loss, replay and schedule knobs.
+      optimizer: builds the optimizer from a parameter list, e.g.
+        ``functools.partial(optim.ClippedAdam, learning_rate=1e-4,
+        clip_norm=40.0)``; its ``step()`` returns the pre-clip norm.
+      num_envs: the envs of a rollout, eval envs included.
+    """
+
+    def __init__(self, agent: R2D2Agent, config: R2D2Config,
+                 optimizer: Callable[[List[torch.Tensor]], Any],
+                 num_envs: int):
+        self.agent = agent
+        self.config = config
+        self.net = agent.net
+        self.target_net = copy.deepcopy(agent.net).requires_grad_(False)
+        self.optimizer = optimizer(self.parameters())
+        self.num_envs = num_envs
+        self.num_training_envs = num_envs - config.num_eval_envs
+        if self.num_training_envs <= 0:
+            raise ValueError("num_eval_envs must leave some training envs")
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """Everything the optimizer updates: the online network."""
+        return list(self.net.parameters())
+
+    def _nets_and_optimizer(self) -> Dict[str, Any]:
+        return dict(
+            params={"net": self.net.state_dict()},
+            target_params={"net": self.target_net.state_dict()},
+            opt_state=self.optimizer.state_dict(),
+        )
+
+    def _load_nets_and_optimizer(self, tree: Dict[str, Any]):
+        self.net.load_state_dict(tree["params"]["net"])
+        self.target_net.load_state_dict(tree["target_params"]["net"])
+        self.optimizer.load_state_dict(tree["opt_state"])
+
+    def sync_target(self):
+        """Hard update: target parameters <- online parameters."""
+        with torch.no_grad():
+            for t, p in zip(self.target_net.parameters(),
+                            self.net.parameters()):
+                t.copy_(p)
+
+    def optimize(self, items: StoredUnroll, weights: torch.Tensor):
+        """One optimization batch on item-major ``items``: burn-in loss
+        weighted by ``weights``, clip + Adam on the online net. Returns
+        (priorities f32[B], logs)."""
+        config = self.config
+        prev_actions, env_outputs, agent_outputs = _time_major(
+            (items.prev_actions, items.env_outputs, items.agent_outputs))
+        loss, priorities = compute_loss_and_priorities(
+            self.net, self.target_net, items.agent_state,
+            prev_actions, env_outputs, agent_outputs,
+            gamma=config.discounting,
+            burn_in=config.burn_in,
+            n_steps=config.n_steps,
+            rescaling_eps=config.value_function_rescaling_epsilon,
+            target=config.target,
+            retrace_lambda=config.retrace_lambda,
+        )
+        loss = torch.mean(loss * weights)
+        self.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = self.optimizer.step()
+        logs = {
+            "losses/td": loss.detach(),
+            "grad/norm": grad_norm,
+            "replay/sampled_priority_mean": torch.mean(priorities),
+            "replay/importance_weight_mean": torch.mean(weights),
+        }
+        return priorities, logs
+
+
+class R2D2Learner(R2D2Update):
     """Fused on-device R2D2: rollout, insert, sample, loss, update.
 
     Args:
@@ -309,17 +394,9 @@ class R2D2Learner:
             raise ValueError(
                 f"the rollout overlap ({engine.overlap}) must equal burn_in "
                 f"({config.burn_in})")
+        super().__init__(agent, config, optimizer, engine.env.num_envs)
         self.engine = engine
-        self.agent = agent
-        self.config = config
-        self.net = agent.net
-        self.target_net = copy.deepcopy(agent.net).requires_grad_(False)
-        self.optimizer = optimizer(self.parameters())
         self.device = engine.env.device
-        self.num_envs = engine.env.num_envs
-        self.num_training_envs = self.num_envs - config.num_eval_envs
-        if self.num_training_envs <= 0:
-            raise ValueError("num_eval_envs must leave some training envs")
         if config.replay_buffer_min_size > config.replay_buffer_size:
             raise ValueError("replay_buffer_min_size exceeds the buffer")
         self.replay = PrioritizedReplay(
@@ -330,10 +407,6 @@ class R2D2Learner:
         self.frames_per_step = (
             engine.unroll_length * self.num_envs * config.num_action_repeats
         )
-
-    def parameters(self) -> List[torch.nn.Parameter]:
-        """Everything the optimizer updates: the online network."""
-        return list(self.net.parameters())
 
     def state_tensors(self, state: R2D2TrainState) -> List[torch.Tensor]:
         return pytree.tree_leaves((
@@ -346,29 +419,15 @@ class R2D2Learner:
         train state's fields (the replay with its priorities and cursors
         among them), the online and target nets, the optimizer and every
         generator."""
-        return dict(
-            state._asdict(),
-            params={"net": self.net.state_dict()},
-            target_params={"net": self.target_net.state_dict()},
-            opt_state=self.optimizer.state_dict(),
-            generators=generator_states(self),
-        )
+        return dict(state._asdict(), **self._nets_and_optimizer(),
+                    generators=generator_states(self))
 
     def load_checkpoint_state(self, state: R2D2TrainState,
                               tree: Dict[str, Any]) -> R2D2TrainState:
         """Takes back a tree of ``checkpoint_state``'s structure, whole or
         its warm-start fields only; returns the train state."""
-        self.net.load_state_dict(tree["params"]["net"])
-        self.target_net.load_state_dict(tree["target_params"]["net"])
-        self.optimizer.load_state_dict(tree["opt_state"])
+        self._load_nets_and_optimizer(tree)
         return load_train_state(self, state, tree)
-
-    def sync_target(self):
-        """Hard update: target parameters <- online parameters."""
-        with torch.no_grad():
-            for t, p in zip(self.target_net.parameters(),
-                            self.net.parameters()):
-                t.copy_(p)
 
     def _example_item(self, rollout: RolloutState) -> StoredUnroll:
         """Zeros shaped like one replay item, from the primed rollout."""
@@ -436,30 +495,9 @@ class R2D2Learner:
             state.replay, self.generator, config.batch_size,
             config.priority_exponent, indices=indices,
         )
-        prev_actions, env_outputs, agent_outputs = _time_major(
-            (items.prev_actions, items.env_outputs, items.agent_outputs))
-        loss, priorities = compute_loss_and_priorities(
-            self.net, self.target_net, items.agent_state,
-            prev_actions, env_outputs, agent_outputs,
-            gamma=config.discounting,
-            burn_in=config.burn_in,
-            n_steps=config.n_steps,
-            rescaling_eps=config.value_function_rescaling_epsilon,
-            target=config.target,
-            retrace_lambda=config.retrace_lambda,
-        )
-        loss = torch.mean(loss * weights)
-        self.optimizer.zero_grad()
-        loss.backward()
-        grad_norm = self.optimizer.step()
+        priorities, logs = self.optimize(items, weights)
         replay = self.replay.update_priorities(
             state.replay, indices, priorities)
-        logs = {
-            "losses/td": loss.detach(),
-            "grad/norm": grad_norm,
-            "replay/sampled_priority_mean": torch.mean(priorities),
-            "replay/importance_weight_mean": torch.mean(weights),
-        }
         return state._replace(replay=replay), logs
 
     def train_step(
@@ -484,6 +522,68 @@ class R2D2Learner:
             state, metrics = self.train_step(state)
             history.append(metrics)
         return state, _mean_metrics(history)
+
+
+class R2D2HostTrainState(NamedTuple):
+    """The host learner's train state: the parameters, target parameters
+    and optimizer state live on the nets and the optimizer, the replay and
+    the rollout on the host."""
+
+    step: int  # optimization batches (the reference's ``iterations``)
+
+
+class R2D2HostLearner(R2D2Update):
+    """R2D2 over host envs and a host-RAM replay, at the reference's scale.
+
+    The sample-train half for ``host_offpolicy.host_offpolicy_loop``, whose
+    ``HostRolloutEngine`` has ``num_overlapping_steps = burn_in``. The loss,
+    targets and priorities are ``R2D2Learner``'s. The target net is synced
+    every ``update_target_every_n_step`` optimization batches.
+    """
+
+    def __init__(self, agent: R2D2Agent, config: R2D2Config,
+                 optimizer: Callable[[List[torch.Tensor]], Any],
+                 num_envs: int, unroll_length: int):
+        super().__init__(agent, config, optimizer, num_envs)
+        self.device = next(agent.net.parameters()).device
+        self.unroll_length = unroll_length
+        self.frames_per_cycle = (
+            unroll_length * num_envs * config.num_action_repeats)
+        self.priority_exponent = config.priority_exponent
+        self.batch_size = config.batch_size
+
+    def init(self) -> R2D2HostTrainState:
+        return R2D2HostTrainState(step=0)
+
+    def state_tensors(self, state: R2D2HostTrainState) -> List[torch.Tensor]:
+        return list(self.target_net.parameters())
+
+    def checkpoint_state(self, state: R2D2HostTrainState) -> Dict[str, Any]:
+        """The step, the online and target nets and the optimizer (the
+        replay is saved beside the checkpoint, ``host_offpolicy.py``)."""
+        return dict(state._asdict(), **self._nets_and_optimizer(),
+                    generators=generator_states(self))
+
+    def load_checkpoint_state(self, state: R2D2HostTrainState,
+                              tree: Dict[str, Any]) -> R2D2HostTrainState:
+        self._load_nets_and_optimizer(tree)
+        return load_train_state(self, state, tree)
+
+    def make_items_and_priorities(self, unroll: Unroll):
+        """An unroll -> (replay items of the training envs, their initial
+        priorities); the eval envs' experience is left out."""
+        items = unroll_to_items(unroll, self.num_training_envs)
+        return items, initial_priorities(self.config, items)
+
+    def train_on_batch(self, state: R2D2HostTrainState, items: StoredUnroll,
+                       weights: torch.Tensor):
+        """One optimization batch on host-sampled items; returns (state,
+        priorities f32[batch], logs)."""
+        priorities, logs = self.optimize(items, weights)
+        step = state.step + 1
+        if step % self.config.update_target_every_n_step == 0:
+            self.sync_target()
+        return state._replace(step=step), priorities, logs
 
 
 def learner_loop(

@@ -27,8 +27,11 @@ observation statistics when the agent normalizes, as the JAX package's
 target tree holds one. The learner holds the entropy-cost parameter and
 the optimizer; the train state carries the replay, the rollout, the
 episode statistics and the step and batch counts (host ints).
-``SACHostLearner`` (host envs, host-RAM replay) waits for the host-env
-slice.
+
+``SACHostLearner`` is the split learner of the host data path
+(``host_offpolicy.py``): uniform replay in host RAM, the same loss. Both
+learners share the update (``SACUpdate``): the nets, the entropy cost, the
+optimizer, one batch's step and the polyak move.
 """
 
 import copy
@@ -328,7 +331,115 @@ def _time_major(tree):
     return pytree.tree_map(lambda t: t.transpose(0, 1).contiguous(), tree)
 
 
-class SACLearner:
+class SACUpdate:
+    """The online and target agents, the entropy-cost parameter, the
+    optimizer and one batch's update, shared by ``SACLearner`` and
+    ``SACHostLearner``.
+
+    Args:
+      agent: a ``SACAgent`` whose network holds the online parameters.
+      config: loss and schedule knobs.
+      optimizer: builds the optimizer from a parameter list (one optimizer
+        over the net and the entropy-cost parameter, one global-norm clip
+        over both, as the JAX package's optax chain); its ``step()``
+        returns the pre-clip norm.
+      device: the agent's device.
+      seed: seeds the generator of the loss's noise (and the replay's
+        draws, for the fused learner).
+    """
+
+    def __init__(self, agent: SACAgent, config: SACConfig,
+                 optimizer: Callable[[List[torch.Tensor]], Any], device,
+                 seed: int):
+        self.agent = agent
+        self.config = config
+        self.net = agent.net
+        self.target_agent = copy.deepcopy(agent)
+        self.target_agent.net.requires_grad_(False)
+        self.device = device
+        mul = config.entropy_cost_adjustment_speed
+        self.entropy_cost = torch.nn.Parameter(torch.tensor(
+            math.log(config.entropy_cost) / mul, dtype=torch.float32,
+            device=self.device))
+        self.optimizer = optimizer(self.parameters())
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def parameters(self) -> List[torch.nn.Parameter]:
+        """Everything the optimizer updates: the online net and the
+        entropy-cost parameter."""
+        return list(self.net.parameters()) + [self.entropy_cost]
+
+    def _nets_and_optimizer(self) -> Dict[str, Any]:
+        return dict(
+            params={"net": self.net.state_dict(),
+                    "entropy_cost": self.entropy_cost.detach()},
+            target_net_params={"net": self.target_agent.net.state_dict(),
+                               "obs_norm": self.target_agent.obs_norm},
+            opt_state=self.optimizer.state_dict(),
+            obs_norm=self.agent.obs_norm,
+        )
+
+    def _load_nets_and_optimizer(self, tree: Dict[str, Any]):
+        self.net.load_state_dict(tree["params"]["net"])
+        with torch.no_grad():
+            self.entropy_cost.copy_(tree["params"]["entropy_cost"])
+        target = tree["target_net_params"]
+        self.target_agent.net.load_state_dict(target["net"])
+        self.target_agent.obs_norm = target["obs_norm"]
+        self.optimizer.load_state_dict(tree["opt_state"])
+        self.agent.obs_norm = tree["obs_norm"]
+
+    @torch.no_grad()
+    def _move_target(self):
+        """target <- polyak * target + (1 - polyak) * online."""
+        p = self.config.polyak
+        targets = list(self.target_agent.net.parameters())
+        torch._foreach_mul_(targets, p)
+        torch._foreach_add_(targets, list(self.net.parameters()),
+                            alpha=1.0 - p)
+        if self.agent.normalize_observations:
+            self.target_agent.obs_norm = pytree.tree_map(
+                lambda t, o: p * t + (1.0 - p) * o,
+                self.target_agent.obs_norm, self.agent.obs_norm)
+
+    def optimize(self, items: StoredUnroll, noise: SACNoise = SACNoise()):
+        """One optimization batch on item-major ``items``: loss (with
+        ``noise`` in place of the generator's draws), clip + Adam, the
+        alpha clip. Returns the metrics."""
+        config = self.config
+        prev_actions, env_outputs, agent_actions = _time_major(
+            (items.prev_actions, items.env_outputs, items.agent_actions))
+        loss, metrics = compute_loss(
+            config, self.agent, self.target_agent, self.entropy_cost,
+            items.agent_state, prev_actions, env_outputs, agent_actions,
+            self.generator, noise)
+        self.optimizer.zero_grad()
+        loss.backward()
+        metrics["grad/norm"] = self.optimizer.step()
+        mul = config.entropy_cost_adjustment_speed
+        with torch.no_grad():
+            self.entropy_cost.clamp_(-20.0 / mul, 20.0 / mul)
+        return metrics
+
+
+def _unroll_to_items(unroll: Unroll) -> StoredUnroll:
+    """A time-major unroll -> item-major ``[B, T + 1]`` items of every env
+    (SAC has no eval envs)."""
+    ts = unroll.timesteps
+
+    def to_items(t):
+        return t.transpose(0, 1)
+
+    return StoredUnroll(
+        agent_state=unroll.agent_state,
+        prev_actions=pytree.tree_map(to_items, ts.prev_action),
+        env_outputs=pytree.tree_map(to_items, ts.env_output),
+        agent_actions=pytree.tree_map(to_items, ts.agent_output.action),
+    )
+
+
+class SACLearner(SACUpdate):
     """Fused on-device SAC: rollout, insert, then ``train_batches_per_step``
     x (sample, loss, clip + Adam, alpha clip, polyak).
 
@@ -377,27 +488,10 @@ class SACLearner:
                 raise ValueError("the rollout unroll must be unroll_length")
             self.replay = PrioritizedReplay(
                 config.replay_buffer_size, importance_sampling_exponent=0.0)
+        super().__init__(agent, config, optimizer, engine.env.device, seed)
         self.engine = engine
-        self.agent = agent
-        self.config = config
-        self.net = agent.net
-        self.target_agent = copy.deepcopy(agent)
-        self.target_agent.net.requires_grad_(False)
-        self.device = engine.env.device
         self.num_envs = engine.env.num_envs
-        mul = config.entropy_cost_adjustment_speed
-        self.entropy_cost = torch.nn.Parameter(torch.tensor(
-            math.log(config.entropy_cost) / mul, dtype=torch.float32,
-            device=self.device))
-        self.optimizer = optimizer(self.parameters())
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self.frames_per_step = engine.unroll_length * self.num_envs
-
-    def parameters(self) -> List[torch.nn.Parameter]:
-        """Everything the optimizer updates: the online net and the
-        entropy-cost parameter."""
-        return list(self.net.parameters()) + [self.entropy_cost]
 
     def state_tensors(self, state: SACTrainState) -> List[torch.Tensor]:
         """The train state's tensors, the target net's and the observation
@@ -414,43 +508,15 @@ class SACLearner:
         batch counts among them), the online net and the entropy cost, the
         target agent's net and statistics, the optimizer, the observation
         statistics (None without) and every generator."""
-        return dict(
-            state._asdict(),
-            params={"net": self.net.state_dict(),
-                    "entropy_cost": self.entropy_cost.detach()},
-            target_net_params={"net": self.target_agent.net.state_dict(),
-                               "obs_norm": self.target_agent.obs_norm},
-            opt_state=self.optimizer.state_dict(),
-            obs_norm=self.agent.obs_norm,
-            generators=generator_states(self),
-        )
+        return dict(state._asdict(), **self._nets_and_optimizer(),
+                    generators=generator_states(self))
 
     def load_checkpoint_state(self, state: SACTrainState,
                               tree: Dict[str, Any]) -> SACTrainState:
         """Takes back a tree of ``checkpoint_state``'s structure, whole or
         its warm-start fields only; returns the train state."""
-        self.net.load_state_dict(tree["params"]["net"])
-        with torch.no_grad():
-            self.entropy_cost.copy_(tree["params"]["entropy_cost"])
-        target = tree["target_net_params"]
-        self.target_agent.net.load_state_dict(target["net"])
-        self.target_agent.obs_norm = target["obs_norm"]
-        self.optimizer.load_state_dict(tree["opt_state"])
-        self.agent.obs_norm = tree["obs_norm"]
+        self._load_nets_and_optimizer(tree)
         return load_train_state(self, state, tree)
-
-    def _unroll_to_items(self, unroll: Unroll) -> StoredUnroll:
-        ts = unroll.timesteps
-
-        def to_items(t):
-            return t.transpose(0, 1)
-
-        return StoredUnroll(
-            agent_state=unroll.agent_state,
-            prev_actions=pytree.tree_map(to_items, ts.prev_action),
-            env_outputs=pytree.tree_map(to_items, ts.env_output),
-            agent_actions=pytree.tree_map(to_items, ts.agent_output.action),
-        )
 
     def _example_item(self, rollout: RolloutState) -> StoredUnroll:
         """Zeros shaped like one replay item, from the primed rollout."""
@@ -483,7 +549,7 @@ class SACLearner:
     def _rollout_and_insert(self, state: SACTrainState) -> SACTrainState:
         rollout, unroll = self.engine.rollout(state.rollout)
         replay, _ = self.replay.insert(
-            state.replay, self._unroll_to_items(unroll),
+            state.replay, _unroll_to_items(unroll),
             torch.ones((self.num_envs,), device=self.device))
         new_steps = pytree.tree_map(lambda x: x[1:],
                                     unroll.timesteps.env_output)
@@ -497,19 +563,6 @@ class SACLearner:
     def warmup_step(self, state: SACTrainState) -> SACTrainState:
         """Rollout + insert only: fills the buffer to its min size."""
         return self._rollout_and_insert(state)
-
-    @torch.no_grad()
-    def _move_target(self):
-        """target <- polyak * target + (1 - polyak) * online."""
-        p = self.config.polyak
-        targets = list(self.target_agent.net.parameters())
-        torch._foreach_mul_(targets, p)
-        torch._foreach_add_(targets, list(self.net.parameters()),
-                            alpha=1.0 - p)
-        if self.agent.normalize_observations:
-            self.target_agent.obs_norm = pytree.tree_map(
-                lambda t, o: p * t + (1.0 - p) * o,
-                self.target_agent.obs_norm, self.agent.obs_norm)
 
     def train_on_batch(
         self,
@@ -527,18 +580,7 @@ class SACLearner:
         _, _, items = self.replay.sample(
             state.replay, self.generator, config.batch_size, 0,
             indices=indices, **sample_kw)
-        prev_actions, env_outputs, agent_actions = _time_major(
-            (items.prev_actions, items.env_outputs, items.agent_actions))
-        loss, metrics = compute_loss(
-            config, self.agent, self.target_agent, self.entropy_cost,
-            items.agent_state, prev_actions, env_outputs, agent_actions,
-            self.generator, noise)
-        self.optimizer.zero_grad()
-        loss.backward()
-        metrics["grad/norm"] = self.optimizer.step()
-        mul = config.entropy_cost_adjustment_speed
-        with torch.no_grad():
-            self.entropy_cost.clamp_(-20.0 / mul, 20.0 / mul)
+        metrics = self.optimize(items, noise)
         batches = state.batches + 1
         if batches % config.update_target_every_n_step == 0:
             self._move_target()
@@ -563,6 +605,80 @@ class SACLearner:
             state, metrics = self.train_step(state)
             history.append(metrics)
         return state, _mean_metrics(history)
+
+
+class SACHostTrainState(NamedTuple):
+    """The host learner's train state: parameters and optimizer state live
+    on the nets and the optimizer, the replay and the rollout on the
+    host."""
+
+    step: int  # optimization batches
+
+
+class SACHostLearner(SACUpdate):
+    """SAC over host envs (MuJoCo, gym) and a uniform host-RAM replay.
+
+    The sample-train half for ``host_offpolicy.host_offpolicy_loop``: the
+    reference SAC's shape (a 1e6-transition replay, replay ratio 4, uniform
+    sampling). The loss is ``compute_loss``, as in ``SACLearner``; the
+    polyak move comes every ``update_target_every_n_step`` batches.
+    """
+
+    def __init__(self, agent: SACAgent, config: SACConfig,
+                 optimizer: Callable[[List[torch.Tensor]], Any],
+                 num_envs: int, unroll_length: int, seed: int = 0):
+        super().__init__(agent, config, optimizer,
+                         next(agent.net.parameters()).device, seed)
+        self.num_envs = num_envs
+        self.num_training_envs = num_envs  # SAC has no dedicated eval envs
+        self.unroll_length = unroll_length
+        self.frames_per_cycle = unroll_length * num_envs
+        self.priority_exponent = 0.0  # uniform replay
+        self.batch_size = config.batch_size
+
+    def init(self) -> SACHostTrainState:
+        return SACHostTrainState(step=0)
+
+    def state_tensors(self, state: SACHostTrainState) -> List[torch.Tensor]:
+        return (pytree.tree_leaves((self.agent.obs_norm or (),
+                                    self.target_agent.obs_norm or ()))
+                + list(self.target_agent.net.parameters()))
+
+    def checkpoint_state(self, state: SACHostTrainState) -> Dict[str, Any]:
+        """The step, the nets, the entropy cost, the statistics, the
+        optimizer and the loss's generator (the replay is saved beside the
+        checkpoint, ``host_offpolicy.py``)."""
+        return dict(state._asdict(), **self._nets_and_optimizer(),
+                    generators=generator_states(self))
+
+    def load_checkpoint_state(self, state: SACHostTrainState,
+                              tree: Dict[str, Any]) -> SACHostTrainState:
+        self._load_nets_and_optimizer(tree)
+        return load_train_state(self, state, tree)
+
+    def make_items_and_priorities(self, unroll: Unroll):
+        """An unroll -> (items of every env, priorities of 1)."""
+        return _unroll_to_items(unroll), torch.ones(
+            (self.num_envs,), device=self.device)
+
+    def on_unroll(self, state: SACHostTrainState, unroll: Unroll):
+        """Folds the unroll's new observations into the statistics."""
+        if self.agent.normalize_observations:
+            self.agent.update_observation_normalization(pytree.tree_map(
+                lambda x: x[1:], unroll.timesteps.env_output.observation))
+        return state
+
+    def train_on_batch(self, state: SACHostTrainState, items: StoredUnroll,
+                       weights: torch.Tensor, noise: SACNoise = SACNoise()):
+        """One optimization batch on host-sampled items (uniform: the
+        weights are ones); returns (state, priorities of 1, metrics)."""
+        del weights
+        metrics = self.optimize(items, noise)
+        step = state.step + 1
+        if step % self.config.update_target_every_n_step == 0:
+            self._move_target()
+        return (state._replace(step=step),
+                torch.ones((self.batch_size,), device=self.device), metrics)
 
 
 def learner_loop(

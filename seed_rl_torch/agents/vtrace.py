@@ -182,7 +182,7 @@ class VTraceLearner:
         self.engine = engine
         self.agent = agent
         self.config = config
-        self.device = engine.env.device
+        self.device = engine.device
         mul = config.entropy_cost_adjustment_speed
         self.entropy_cost = torch.nn.Parameter(
             torch.tensor(
@@ -207,7 +207,7 @@ class VTraceLearner:
     def state_tensors(self, state: VTraceTrainState) -> List[torch.Tensor]:
         """The train state's tensors and the agent's observation
         statistics, if it normalizes."""
-        return pytree.tree_leaves((state.rollout, state.stats,
+        return pytree.tree_leaves((state.rollout or (), state.stats,
                                    getattr(self.agent, "obs_norm", ())))
 
     def checkpoint_state(self, state: VTraceTrainState) -> Dict[str, Any]:
@@ -237,9 +237,10 @@ class VTraceLearner:
 
     def init(self) -> VTraceTrainState:
         """Starts the rollout and the counters (parameters live on the
-        network, optimizer state on the optimizer)."""
+        network, optimizer state on the optimizer). A host engine's
+        rollout state stays outside the train state (``host_loop.py``)."""
         return VTraceTrainState(
-            rollout=self.engine.init(),
+            rollout=None if self.engine.is_host else self.engine.init(),
             stats=episode_stats.init(self.engine.env.num_envs, self.device),
             step=0,
         )

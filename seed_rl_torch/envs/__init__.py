@@ -10,10 +10,21 @@ from seed_rl_torch.envs.catch import (  # noqa: F401
     CatchEnv,
     ContinuousCatchEnv,
 )
-from seed_rl_torch.envs.spaces import Box, Discrete  # noqa: F401
+from seed_rl_torch.envs.host import (  # noqa: F401
+    DiscretizeEnvWrapper,
+    HostBatchedEnv,
+    UniformBoundActionSpaceWrapper,
+)
+from seed_rl_torch.envs.spaces import (  # noqa: F401
+    Box,
+    Discrete,
+    MultiDiscrete,
+)
 from seed_rl_torch.envs.synthetic import (  # noqa: F401
     SyntheticAtariEnv,
+    SyntheticAtariGymEnv,
     SyntheticDmLabEnv,
+    SyntheticFootballEnv,
 )
 from seed_rl_torch.envs.toy import (  # noqa: F401
     BitFlippingEnv,

@@ -8,7 +8,7 @@ from seed_rl_torch.models.atari import (  # noqa: F401
     AtariPolicyNet,
     DuelingLSTMDQNNet,
 )
-from seed_rl_torch.models.resnets import ImpalaDeep  # noqa: F401
+from seed_rl_torch.models.resnets import GFootball, ImpalaDeep  # noqa: F401
 from seed_rl_torch.models.sac_nets import (  # noqa: F401
     ActorCriticLSTM,
     ActorCriticMLP,

@@ -23,7 +23,9 @@ Networks: ``MLPAndLSTM``, ``MLPPolicyNetwork``, ``VectorDuelingDQNNet``
 ``DuelingLSTMDQNNet`` (the same torso and core, then the dueling heads
 named as in ``VectorDuelingDQNNet``) and ``ImpalaDeep``
 (``torso/ResidualStack_k/Conv_0`` -> ``torso.stacks.k.conv``,
-``res_i_conv{0,1}`` -> ``torso.stacks.k.blocks.i.{0,1}``), and the PPO
+``res_i_conv{0,1}`` -> ``torso.stacks.k.blocks.i.{0,1}``), ``GFootball``
+(its unnamed ``ImpalaResNetTorso_0`` -> ``torso``, mapped as
+``ImpalaDeep``'s), and the PPO
 family's ``ContinuousControlNet`` (``{shared,policy,value}_torso/Dense_i``
 and ``LayerNorm_i`` -> ``*.layers.i`` and ``*.norms.i``, flax's LayerNorm
 ``scale`` -> ``weight``; ``lstm_i`` -> ``lstm.cells.i``; the free log-std
@@ -47,7 +49,7 @@ from seed_rl_torch.agents.ppo.continuous_control_agent import (
 from seed_rl_torch.models.atari import AtariPolicyNet, DuelingLSTMDQNNet
 from seed_rl_torch.models.dueling_mlp import VectorDuelingDQNNet
 from seed_rl_torch.models.policy import MLPAndLSTM, MLPPolicyNetwork
-from seed_rl_torch.models.resnets import ImpalaDeep
+from seed_rl_torch.models.resnets import GFootball, ImpalaDeep
 from seed_rl_torch.models.sac_nets import (
     ActorCriticLSTM,
     ActorCriticMLP,
@@ -178,9 +180,7 @@ def dueling_lstm_dqn_net_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def impala_deep_state_dict(params) -> Dict[str, torch.Tensor]:
-    p = _unwrap(params)
-    torso = p["torso"]
+def _impala_torso(torso) -> Dict[str, torch.Tensor]:
     out = {}
     for k, stack in enumerate(_indexed(torso, "ResidualStack_")):
         prefix = f"torso.stacks.{k}."
@@ -192,9 +192,18 @@ def impala_deep_state_dict(params) -> Dict[str, torch.Tensor]:
                                  f"{prefix}blocks.{i}.{j}."))
             i += 1
     out.update(_dense(torso["Dense_0"], "torso.dense."))
-    out.update(_lstm_cell(p["lstm"], "lstm.cells.0."))
-    out.update(_heads(p))
     return out
+
+
+def impala_deep_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    return {**_impala_torso(p["torso"]),
+            **_lstm_cell(p["lstm"], "lstm.cells.0."), **_heads(p)}
+
+
+def gfootball_state_dict(params) -> Dict[str, torch.Tensor]:
+    p = _unwrap(params)
+    return {**_impala_torso(p["ImpalaResNetTorso_0"]), **_heads(p)}
 
 
 def continuous_control_net_state_dict(params) -> Dict[str, torch.Tensor]:
@@ -263,6 +272,8 @@ def state_dict_for(net: torch.nn.Module, params) -> Dict[str, torch.Tensor]:
         return dueling_lstm_dqn_net_state_dict(params)
     if isinstance(net, ImpalaDeep):
         return impala_deep_state_dict(params)
+    if isinstance(net, GFootball):
+        return gfootball_state_dict(params)
     if isinstance(net, ContinuousControlNet):
         return continuous_control_net_state_dict(params)
     if isinstance(net, ActorCriticMLP):

@@ -5,8 +5,10 @@ Port of ``seed_rl_tpu/models/resnets.py``: ``ResidualStack`` (3x3 SAME conv,
 ``ImpalaResNetTorso`` (stacks (16,2)(32,2)(32,2), ReLU, Dense 256) and
 ``ImpalaDeep`` (torso, then [torso, reward clipped to +-1, one-hot previous
 action] into an LSTM(256) that resets where ``done`` is set, then policy
-logits and baseline). ``GFootball`` waits for the host-env slice, which
-brings the bit-plane unpacking it reads.
+logits and baseline), and ``GFootball`` (the stateless Football agent: four
+stacks (16,2)(32,2)(32,2)(32,2) over the bit planes that
+``envs/football.py::unpackbits`` unpacks on the device, then policy logits
+and baseline).
 
 Frames stay NHWC uint8; the torso runs channels_last and flattens in the
 JAX package's (H, W, C) order (see ``models/atari.py``). A 3x3 SAME conv at
@@ -31,6 +33,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from seed_rl_torch.device import resolve_device
+from seed_rl_torch.envs.football import unpackbits
 from seed_rl_torch.models.atari import flatten_hwc, nchw_frames
 from seed_rl_torch.models.core import (
     LSTMStack,
@@ -160,3 +163,52 @@ class ImpalaDeep(nn.Module):
                 x[step], core_state, env_outputs.done[step])
             outputs.append(out)
         return self._heads(torch.stack(outputs)), core_state
+
+
+class GFootball(nn.Module):
+    """Stateless 4-stack resnet agent over bit-packed SMM observations.
+
+    ``observation_shape`` is the packed ``(H, W, C)`` uint16 frame's (with
+    ``unpack_input_bits``, the torso sees ``16 C`` planes).
+    ``forward(prev_action, env_output, core_state)`` returns
+    ``((policy_params, baseline), core_state)``; the core state is ``()``.
+    """
+
+    stateless = True
+
+    def __init__(
+        self,
+        parametric_distribution_param_size: int,
+        observation_shape: Tuple[int, int, int],
+        unpack_input_bits: bool = True,
+        seed: int = 0,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        generator = _generator(seed)
+        h, w, channels = observation_shape
+        self.unpack_input_bits = unpack_input_bits
+        if unpack_input_bits:
+            channels *= 16
+        self.torso = ImpalaResNetTorso(
+            (h, w, channels), generator,
+            stack_config=((16, 2), (32, 2), (32, 2), (32, 2)))
+        out = self.torso.dense.out_features
+        self.policy_logits = dense(out, parametric_distribution_param_size,
+                                   generator)
+        self.baseline = dense(out, 1, generator)
+        self.to(device)
+
+    def initial_state(self, batch_size: int):
+        del batch_size
+        return ()
+
+    def forward(self, prev_action, env_output, core_state):
+        del prev_action
+        frame = env_output.observation
+        if self.unpack_input_bits:
+            frame = unpackbits(frame)
+        x = self.torso(frame)
+        return (self.policy_logits(x), self.baseline(x).squeeze(-1)), \
+            core_state

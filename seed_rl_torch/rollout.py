@@ -73,6 +73,8 @@ class RolloutEngine:
       deterministic: act by the policy's mode instead of sampling (eval).
     """
 
+    is_host = False
+
     def __init__(
         self,
         batched_env: BatchedEnv,
@@ -92,6 +94,7 @@ class RolloutEngine:
         self.unroll_length = unroll_length
         self.overlap = num_overlapping_steps
         self.deterministic = deterministic
+        self.device = batched_env.device
         self.generator = torch.Generator(device=batched_env.device)
         self.generator.manual_seed(seed)
         self._zero_action = zero_action_for_space(

@@ -24,7 +24,23 @@ runs on the CPU):
   ``ActorCriticMLP``, or ``ActorCriticLSTM`` with ``--sac_net=lstm``; on
   ``catch`` / ``catch_continuous`` ``VisualActorCritic`` over frames;
   ``--her_window_length`` turns on HER (``bit_flipping`` only), and
-  ``--normalize_observations`` works on the vector envs.
+  ``--normalize_observations`` works on the vector envs;
+- every agent on the host envs (``--env={synthetic_atari_host,mujoco,
+  atari,dmlab,football}``, stepped on the host by a ``HostBatchedEnv`` of
+  ``min(num_envs, 16)`` threads; ``--env_name`` picks the gym env of
+  ``mujoco``, ``--game`` the game or level of the others): V-trace and
+  PPO through ``host_loop.host_learner_loop``, R2D2 and SAC through
+  ``host_offpolicy.host_offpolicy_loop`` with a host-RAM replay under
+  ``--replay_ratio`` (default 0.75); ``--pipeline_host_rollouts`` overlaps
+  the env stepping with training, and ``--checkpoint_replay`` (with
+  ``--logdir``) saves the replay under ``<logdir>/replay`` beside each
+  checkpoint and restores it on resume. The nets are the JAX CLI's
+  (AtariPolicyNet / DuelingLSTMDQNNet on Atari frames, ImpalaDeep on
+  DmLab, GFootball on Football, the vector nets on MuJoCo), but for SAC on
+  frames, which takes ``VisualActorCritic`` (the JAX CLI builds an MLP
+  there that cannot act). ``atari``, ``dmlab`` and ``football`` need
+  ``ale_py``, ``deepmind_lab`` and ``gfootball``, and raise
+  ``ImportError`` without them.
 
 Every agent checkpoints and logs as the JAX CLI does:
 - ``--logdir``: TensorBoard scalars under it, and checkpoints under
@@ -45,18 +61,22 @@ Every agent checkpoints and logs as the JAX CLI does:
   (exports to ``<logdir>/saved_models/<frames>``) and ``--num_snapshots``
   (in-memory, on ``learner.snapshots``) at linspace frame marks.
 
-Other agent/env pairs, ``--run_mode={actor,learner}``,
-``--checkpoint_replay``, observation normalization outside V-trace and SAC
-or on frames, host-env replay ratios and more than one replica are not
-ported yet and raise ``NotImplementedError`` rather than being ignored.
-Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
-use, this one raises ``ValueError``: ``--conv_net=atari``,
-``--conv_net=impala_deep`` and ``--remat_torso`` where no conv net reads
-them, a ``--lambda_`` other than its default under ``--agent=vtrace``, the
-action-point counts outside ``--agent=ppo``, ``--train_batches_per_step``,
-``--update_target_every_n_step`` and ``--sac_net=lstm`` on frames under
-``--agent=sac``, and HER on any env but ``bit_flipping`` or with windows
-shorter than ``unroll_length + 1``.
+Other agent/env pairs, ``--run_mode={actor,learner}``, ``--agent_module``,
+observation normalization outside V-trace and SAC or on frames, and more
+than one replica are not ported yet and raise ``NotImplementedError``
+rather than being ignored. Where the JAX CLI accepts a flag and ignores
+it, or takes one it cannot use, this one raises ``ValueError``:
+``--conv_net=atari``, ``--conv_net=impala_deep`` and ``--remat_torso``
+where no conv net reads them, a ``--lambda_`` other than its default under
+``--agent=vtrace``, the action-point counts outside ``--agent=ppo`` on a
+device env, ``--train_batches_per_step``, ``--update_target_every_n_step``
+and ``--sac_net=lstm`` on frames under ``--agent=sac``, HER on any env but
+``bit_flipping`` or with windows shorter than ``unroll_length + 1``,
+``--replay_ratio`` and ``--checkpoint_replay`` outside R2D2 and SAC on a
+host env (and ``--checkpoint_replay`` without ``--logdir``),
+``--pipeline_host_rollouts`` on a device env, ``--train_batches_per_step``
+under R2D2 on a host env, ``--run_mode=profile`` on a host env (the JAX
+CLI asserts), and R2D2 on an env without discrete actions.
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -76,6 +96,9 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=catch \
       --num_envs=256 --unroll_length=20 --logdir=/path/to/run \
       --run_mode=eval --eval_episodes=256
+  python -m seed_rl_torch.train --agent=r2d2 --env=synthetic_atari_host \
+      --num_envs=64 --unroll_length=80 --burn_in=40 --replay_ratio=0.75 \
+      --pipeline_host_rollouts --logdir=/path/to/run --checkpoint_replay
 """
 
 import argparse
@@ -99,18 +122,26 @@ ENVS = [
     "dmlab", "football",
 ]
 RUN_MODES = ["train", "eval", "profile", "actor", "learner"]
+# Envs stepped on the host (HostBatchedEnv); every agent takes them.
+HOST_ENVS = ("synthetic_atari_host", "mujoco", "atari", "dmlab", "football")
 # agent -> the envs it is ported for.
 PORTED = {
-    "vtrace": ("toy", "toy_memory", "catch", "synthetic_atari"),
-    "r2d2": ("discrete_match", "catch", "synthetic_atari"),
+    "vtrace": ("toy", "toy_memory", "catch", "synthetic_atari") + HOST_ENVS,
+    "r2d2": ("discrete_match", "catch", "synthetic_atari") + HOST_ENVS,
     "ppo": ("toy", "toy_memory", "discrete_match", "catch",
-            "synthetic_atari"),
+            "synthetic_atari") + HOST_ENVS,
     "sac": ("toy", "toy_memory", "bit_flipping", "catch",
-            "catch_continuous"),
+            "catch_continuous") + HOST_ENVS,
 }
-# Envs whose observations are frames, for the conv nets.
-PIXEL_ENVS = ("catch", "catch_continuous", "synthetic_atari")
+# Envs of Atari-shaped frames: AtariPolicyNet, DuelingLSTMDQNNet, and
+# ImpalaDeep under --conv_net=impala_deep.
+ATARI_FRAME_ENVS = ("catch", "synthetic_atari", "synthetic_atari_host",
+                    "atari")
+# Envs whose observations are frames.
+PIXEL_ENVS = ATARI_FRAME_ENVS + ("catch_continuous", "dmlab", "football")
 LAMBDA_DEFAULT = 0.95
+# The JAX CLI's --replay_ratio default (the reference R2D2's).
+REPLAY_RATIO_DEFAULT = 0.75
 # Reseeds the envs' generator for --run_mode=eval (the JAX CLI's eval key).
 EVAL_SEED = 1234
 # The JAX CLI's defaults of flags its SAC branch never reads.
@@ -127,7 +158,14 @@ def parse_args(argv=None):
                         "trace --profile_calls calls with torch.profiler; "
                         "actor and learner (the remote-actor runtime) are "
                         "not ported yet")
-    p.add_argument("--env", required=True, choices=ENVS)
+    p.add_argument("--env", required=True, choices=ENVS,
+                   help="synthetic_atari_host = Atari-shaped frames from "
+                        "host-process envs (the host data path without "
+                        "ale_py)")
+    p.add_argument("--env_name", default="HalfCheetah-v5",
+                   help="the gym env of --env=mujoco")
+    p.add_argument("--game", default="Pong",
+                   help="the game or level of --env={atari,dmlab,football}")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
     p.add_argument("--logdir", default=None,
@@ -151,7 +189,9 @@ def parse_args(argv=None):
                    help="a logdir to warm-start from when --logdir holds "
                         "no checkpoint")
     p.add_argument("--checkpoint_replay", action="store_true",
-                   help="host-env off-policy agents (not ported yet)")
+                   help="R2D2 and SAC on host envs: save the host-RAM "
+                        "replay under <logdir>/replay beside each "
+                        "checkpoint and restore it on resume")
     p.add_argument("--eval_episodes", type=int, default=32)
     p.add_argument("--profile_calls", type=int, default=5,
                    help="train_many calls traced by --run_mode=profile")
@@ -186,11 +226,17 @@ def parse_args(argv=None):
     p.add_argument("--retrace_lambda", type=float, default=0.95)
     p.add_argument("--replay_buffer_size",
                    type=lambda s: int(float(s)), default=10_000,
-                   help="unrolls, kept on the device")
+                   help="unrolls (R2D2) / windows (SAC): kept on the device "
+                        "for device envs, in host RAM for host envs")
     p.add_argument("--replay_buffer_min_size", type=int, default=500,
                    help="buffer fill before training starts")
     p.add_argument("--replay_ratio", type=float, default=None,
-                   help="host-env off-policy agents only (not ported yet)")
+                   help="R2D2 and SAC on host envs: expected times each "
+                        "stored item is trained on (default "
+                        f"{REPLAY_RATIO_DEFAULT})")
+    p.add_argument("--pipeline_host_rollouts", action="store_true",
+                   help="host envs: step the envs beside training, with "
+                        "one-update-stale behaviour parameters")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--update_target_every_n_step", type=int,
                    default=UPDATE_TARGET_EVERY_N_STEP_DEFAULT,
@@ -242,6 +288,8 @@ def parse_args(argv=None):
     p.add_argument("--num_checkpoints", type=int, default=0)
     p.add_argument("--num_saved_models", type=int, default=0)
     p.add_argument("--num_snapshots", type=int, default=0)
+    p.add_argument("--agent_module", default=None,
+                   help="the free-composition hook (not ported yet)")
     return p.parse_args(argv)
 
 
@@ -258,33 +306,62 @@ def _refuse_unported(args):
         refuse(f"--env={args.env} with --agent={args.agent}")
     if args.run_mode in ("actor", "learner"):
         refuse(f"--run_mode={args.run_mode} (the remote-actor runtime)")
-    if args.checkpoint_replay:
-        refuse("--checkpoint_replay (host-env replay)")
+    if args.agent_module:
+        refuse("--agent_module (the free-composition hook)")
     if args.normalize_observations and (
             args.agent not in ("vtrace", "sac") or args.env in PIXEL_ENVS):
         refuse(f"--normalize_observations with --agent={args.agent} "
                f"--env={args.env}")
-    if args.replay_ratio is not None:
-        refuse("--replay_ratio (host-env replay)")
+    host = args.env in HOST_ENVS
     for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
-        if getattr(args, flag) and args.agent != "ppo":
-            raise ValueError(f"--{flag} is read by --agent=ppo only (the "
-                             "JAX CLI ignores it elsewhere)")
+        if getattr(args, flag) and (args.agent != "ppo" or host):
+            raise ValueError(f"--{flag} is read by --agent=ppo on a device "
+                             "env only (the JAX CLI ignores it elsewhere)")
+    _refuse_host_flags(args, host)
     if args.conv_net == "atari":
         raise ValueError(
             "--conv_net=atari selects nothing in the JAX CLI; AtariPolicyNet "
             "is --conv_net=auto on a pixel env")
-    conv = args.agent == "vtrace" and args.env in PIXEL_ENVS
+    conv = args.agent == "vtrace" and args.env in ATARI_FRAME_ENVS
     if args.conv_net == "impala_deep" and not conv:
-        raise ValueError("--conv_net=impala_deep needs --agent=vtrace and a "
-                         f"pixel env ({', '.join(PIXEL_ENVS)})")
-    if args.remat_torso and args.conv_net != "impala_deep":
-        raise ValueError("--remat_torso needs --conv_net=impala_deep")
+        raise ValueError(
+            "--conv_net=impala_deep needs --agent=vtrace and Atari-shaped "
+            f"frames ({', '.join(ATARI_FRAME_ENVS)})")
+    impala_deep = args.conv_net == "impala_deep" or (
+        args.env == "dmlab" and args.agent in ("vtrace", "ppo"))
+    if args.remat_torso and not impala_deep:
+        raise ValueError("--remat_torso needs ImpalaDeep: "
+                         "--conv_net=impala_deep, or V-trace or PPO on dmlab")
     if args.agent == "vtrace" and args.lambda_ != LAMBDA_DEFAULT:
         raise ValueError("--lambda_ is read by --agent=ppo only; V-trace "
                          "keeps lambda 1 (the JAX CLI ignores the flag)")
     if args.agent == "sac":
         _refuse_sac_flags(args)
+
+
+def _refuse_host_flags(args, host):
+    offpolicy = host and args.agent in ("r2d2", "sac")
+    for flag in ("replay_ratio", "checkpoint_replay"):
+        if getattr(args, flag) not in (None, False) and not offpolicy:
+            raise ValueError(f"--{flag} is read by R2D2 and SAC on a host env "
+                             f"only ({', '.join(HOST_ENVS)}); the JAX CLI "
+                             "ignores it elsewhere")
+    if args.checkpoint_replay and not args.logdir:
+        raise ValueError("--checkpoint_replay requires --logdir")
+    if args.pipeline_host_rollouts and not host:
+        raise ValueError("--pipeline_host_rollouts is read on a host env "
+                         f"only ({', '.join(HOST_ENVS)})")
+    if not host:
+        return
+    if args.run_mode == "profile":
+        raise ValueError("--run_mode=profile traces the on-device engine; "
+                         "the JAX CLI refuses it on host envs too")
+    if (args.agent == "r2d2"
+            and args.train_batches_per_step != TRAIN_BATCHES_PER_STEP_DEFAULT):
+        raise ValueError("--train_batches_per_step is not read on a host "
+                         "env: --replay_ratio sets the batches a cycle")
+    if args.agent == "sac" and args.env == "football":
+        raise ValueError("no SAC net reads Football's bit-packed frames")
 
 
 def _refuse_sac_flags(args):
@@ -319,9 +396,38 @@ def _refuse_replicas(args, device):
         )
 
 
+def _host_env(args, i: int):
+    """Env ``i`` of a host fleet (the JAX CLI's env table)."""
+    if args.env == "synthetic_atari_host":
+        from seed_rl_torch.envs.synthetic import SyntheticAtariGymEnv
+
+        return SyntheticAtariGymEnv()
+    if args.env == "mujoco":
+        from seed_rl_torch.envs import mujoco
+
+        return mujoco.create_environment(args.env_name)
+    if args.env == "atari":
+        from seed_rl_torch.envs import atari
+
+        return atari.create_environment(args.game, task=i)
+    if args.env == "dmlab":
+        from seed_rl_torch.envs import dmlab
+
+        return dmlab.create_environment(args.game, task=i)
+    from seed_rl_torch.envs import football
+
+    return football.create_environment(args.game)
+
+
 def make_env(args, device):
+    """The env and whether it steps on the host: a ``BatchedEnv`` on
+    ``device``, or a ``HostBatchedEnv`` of ``min(num_envs, 16)`` threads."""
     from seed_rl_torch import envs
 
+    if args.env in HOST_ENVS:
+        return envs.HostBatchedEnv(functools.partial(_host_env, args),
+                                   args.num_envs,
+                                   num_threads=min(args.num_envs, 16)), True
     env = {
         "toy": envs.ToyEnv,
         "toy_memory": envs.ToyMemoryEnv,
@@ -331,7 +437,7 @@ def make_env(args, device):
         "catch_continuous": envs.ContinuousCatchEnv,
         "synthetic_atari": envs.SyntheticAtariEnv,
     }[args.env]()
-    return envs.BatchedEnv(env, args.num_envs, device=device, seed=0)
+    return envs.BatchedEnv(env, args.num_envs, device=device, seed=0), False
 
 
 def main(argv=None):
@@ -342,26 +448,52 @@ def main(argv=None):
     device = resolve_device(args.device)
     _refuse_replicas(args, device)
 
-    from seed_rl_torch import optim
     from seed_rl_torch.utils import debug_asserts
-    from seed_rl_torch.utils.checkpoint import CheckpointManager
-    from seed_rl_torch.utils.metrics import MetricsLogger
 
     debug_asserts.enable(args.debug_asserts)
-    env = make_env(args, device)
-    # Linear decay over optimizer updates, the reference's PolynomialDecay
-    # with power 1: one update per V-trace or SAC step (whose rollouts span
-    # the HER window), train_batches_per_step per R2D2 step,
-    # epochs_per_step x batches_per_step per PPO step.
+    env, host = make_env(args, device)
+    try:
+        return _run(args, env, host, device)
+    finally:
+        if host:
+            env.close()
+
+
+def _optimizer_updates(args, host):
+    """The optimizer updates of the frame budget, for the linear lr decay
+    (the reference's PolynomialDecay with power 1): one per V-trace or SAC
+    step (whose rollouts span the HER window), train_batches_per_step per
+    R2D2 step, epochs_per_step x batches_per_step per PPO step, and on a
+    host env the off-policy loop's owed batches, replay_ratio x training
+    envs / batch_size a cycle (at least one)."""
     unroll = args.unroll_length
     if args.agent == "sac" and args.her_window_length:
         unroll = args.her_window_length
     frames_per_rollout = max(1, args.num_envs * unroll)
-    updates = max(1, args.total_environment_frames // frames_per_rollout)
+    rollouts = max(1, args.total_environment_frames // frames_per_rollout)
+    if host and args.agent in ("r2d2", "sac"):
+        training = args.num_envs - (
+            args.num_eval_envs if args.agent == "r2d2" else 0)
+        per_cycle = _replay_ratio(args) * training / args.batch_size
+        return int(rollouts * max(1.0, per_cycle))
     if args.agent == "r2d2":
-        updates *= max(1, args.train_batches_per_step)
-    elif args.agent == "ppo":
-        updates *= max(1, args.epochs_per_step * args.batches_per_step)
+        return rollouts * max(1, args.train_batches_per_step)
+    if args.agent == "ppo":
+        return rollouts * max(1, args.epochs_per_step * args.batches_per_step)
+    return rollouts
+
+
+def _replay_ratio(args):
+    return (REPLAY_RATIO_DEFAULT if args.replay_ratio is None
+            else args.replay_ratio)
+
+
+def _run(args, env, host, device):
+    from seed_rl_torch import optim
+    from seed_rl_torch.utils.checkpoint import CheckpointManager
+    from seed_rl_torch.utils.metrics import MetricsLogger
+
+    updates = _optimizer_updates(args, host)
     decay = args.lr_decay_multiplier != 1.0
     optimizer = functools.partial(
         optim.ClippedAdam,
@@ -374,21 +506,16 @@ def main(argv=None):
         ),
         transition_steps=updates,
     )
-    if args.agent == "r2d2":
-        learner, loop = _r2d2_learner(args, env, optimizer, device)
-    elif args.agent == "ppo":
-        learner, loop = _ppo_learner(args, env, optimizer, device)
-    elif args.agent == "sac":
-        learner, loop = _sac_learner(args, env, optimizer, device)
-    else:
-        learner, loop = _vtrace_learner(args, env, optimizer, device)
+    build = {"r2d2": _r2d2_learner, "ppo": _ppo_learner,
+             "sac": _sac_learner, "vtrace": _vtrace_learner}[args.agent]
+    learner, loop = build(args, env, host, optimizer, device)
     checkpoint = CheckpointManager(
         args.logdir,
         save_checkpoint_secs=args.save_checkpoint_secs,
         init_checkpoint=args.init_checkpoint,
     )
     if args.run_mode == "eval":
-        return _eval(args, learner, checkpoint)
+        return _eval(args, learner, checkpoint, env, host, device)
     if args.run_mode == "profile":
         return _profile(args, learner)
     logger = MetricsLogger(args.logdir)
@@ -407,14 +534,55 @@ def main(argv=None):
     return learner, state, metrics
 
 
-def _eval(args, learner, checkpoint):
+def _host_loop(engine, replay=None, replay_ratio=None, min_size=None,
+               replay_dir=None, pipeline=False):
+    """A host-env training loop with the device loops' signature:
+    ``host_learner_loop`` without a replay, ``host_offpolicy_loop`` with
+    one (a log line every ``log_every_steps`` cycles)."""
+    def loop(learner, total_environment_frames, logger=None, checkpoint=None,
+             log_every_steps=10, steps_per_call=1):
+        del steps_per_call  # the host loops take one cycle at a time
+        if replay is None:
+            from seed_rl_torch.host_loop import host_learner_loop
+
+            return host_learner_loop(
+                learner, engine, total_environment_frames, logger=logger,
+                checkpoint=checkpoint, log_every_steps=log_every_steps,
+                pipeline=pipeline)
+        from seed_rl_torch.host_offpolicy import host_offpolicy_loop
+
+        return host_offpolicy_loop(
+            learner, engine, replay, total_environment_frames,
+            replay_ratio=replay_ratio, replay_buffer_min_size=min_size,
+            logger=logger, checkpoint=checkpoint,
+            log_every_cycles=log_every_steps, pipeline=pipeline,
+            replay_dir=replay_dir)
+
+    return loop
+
+
+def _offpolicy_host_loop(args, engine, importance_sampling_exponent, device):
+    from seed_rl_torch.replay_host import HostReplayBuffer
+
+    replay = HostReplayBuffer(args.replay_buffer_size,
+                              importance_sampling_exponent, device=device)
+    replay_dir = (os.path.join(os.path.abspath(args.logdir), "replay")
+                  if args.checkpoint_replay else None)
+    return _host_loop(engine, replay, _replay_ratio(args),
+                      args.replay_buffer_min_size, replay_dir,
+                      args.pipeline_host_rollouts)
+
+
+def _eval(args, learner, checkpoint, env, host, device):
     """``--run_mode=eval``: restore, then deterministic evaluation on the
-    learner's envs; prints one JSON line."""
+    learner's envs (host envs reset with seed 0, as the JAX CLI's); prints
+    one JSON line."""
     from seed_rl_torch.evaluation import run_eval
 
     state = checkpoint.restore_or(learner, learner.init())
-    metrics = run_eval(learner.engine.env, learner.agent, args.eval_episodes,
-                       unroll_length=args.unroll_length, seed=EVAL_SEED)
+    metrics = run_eval(env, learner.agent, args.eval_episodes,
+                       unroll_length=args.unroll_length, seed=EVAL_SEED,
+                       host=host, device=device)
     metrics["eval/restored_step"] = state.step
     print(json.dumps(metrics), flush=True)
     return learner, state, metrics
@@ -464,27 +632,54 @@ def _profile(args, learner):
     return learner, state, result
 
 
-def _vtrace_learner(args, env, optimizer, device):
+def _engine(args, env, host, agent, device, overlap=0):
+    """The rollout engine of the env's kind, seeded 1."""
+    if host:
+        from seed_rl_torch.rollout_host import HostRolloutEngine
+
+        return HostRolloutEngine(env, agent, args.unroll_length,
+                                 num_overlapping_steps=overlap,
+                                 device=device, seed=1)
+    from seed_rl_torch.rollout import RolloutEngine
+
+    return RolloutEngine(env, agent, args.unroll_length,
+                         num_overlapping_steps=overlap, seed=1)
+
+
+def _policy_net(args, env, dist, device):
+    """The JAX CLI's V-trace / discrete-PPO net of an env with frames:
+    ImpalaDeep on DmLab (or under --conv_net=impala_deep), AtariPolicyNet
+    (LSTM 256) on Atari-shaped frames, GFootball on Football; None on a
+    vector env."""
+    from seed_rl_torch.models import AtariPolicyNet, GFootball, ImpalaDeep
+
+    obs_shape = tuple(env.observation_spec().shape)
+    if args.conv_net == "impala_deep" or args.env == "dmlab":
+        return ImpalaDeep(num_actions=env.action_space.n,
+                          observation_shape=obs_shape,
+                          remat=args.remat_torso, seed=0, device=device)
+    if args.env in ATARI_FRAME_ENVS:
+        return AtariPolicyNet(
+            parametric_distribution_param_size=dist.param_size,
+            frame_shape=obs_shape[:2], stack_size=4, lstm_size=256, seed=0,
+            device=device)
+    if args.env == "football":
+        return GFootball(parametric_distribution_param_size=dist.param_size,
+                         observation_shape=obs_shape, seed=0, device=device)
+    return None
+
+
+def _vtrace_learner(args, env, host, optimizer, device):
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agent import NormalizingObservationsAgent, PolicyAgent
     from seed_rl_torch.agents import vtrace as vtrace_agent
-    from seed_rl_torch.models import AtariPolicyNet, ImpalaDeep, MLPAndLSTM
+    from seed_rl_torch.models import MLPAndLSTM
     from seed_rl_torch.ops.normalizer import observation_width
-    from seed_rl_torch.rollout import RolloutEngine
 
     dist = pd.get_parametric_distribution_for_action_space(env.action_space)
     obs_shape = tuple(env.observation_spec().shape)
-    if args.conv_net == "impala_deep":
-        net = ImpalaDeep(num_actions=env.action_space.n,
-                         observation_shape=obs_shape,
-                         remat=args.remat_torso, seed=0, device=device)
-    elif args.env in PIXEL_ENVS:
-        net = AtariPolicyNet(
-            parametric_distribution_param_size=dist.param_size,
-            frame_shape=obs_shape[:2], stack_size=4, lstm_size=256, seed=0,
-            device=device,
-        )
-    else:
+    net = _policy_net(args, env, dist, device)
+    if net is None:
         net = MLPAndLSTM(
             parametric_distribution_param_size=dist.param_size,
             input_size=math.prod(obs_shape),
@@ -499,20 +694,25 @@ def _vtrace_learner(args, env, optimizer, device):
         discounting=args.discounting,
         entropy_cost=args.entropy_cost,
     )
-    engine = RolloutEngine(env, agent, args.unroll_length, seed=1)
+    engine = _engine(args, env, host, agent, device)
     learner = vtrace_agent.VTraceLearner(
         engine, agent, config, optimizer, seed=2
     )
+    if host:
+        return learner, _host_loop(engine,
+                                   pipeline=args.pipeline_host_rollouts)
     return learner, vtrace_agent.learner_loop
 
 
-def _r2d2_learner(args, env, optimizer, device):
+def _r2d2_learner(args, env, host, optimizer, device):
     from seed_rl_torch.agents import r2d2
     from seed_rl_torch.models import DuelingLSTMDQNNet, VectorDuelingDQNNet
-    from seed_rl_torch.rollout import RolloutEngine
 
+    if not hasattr(env.action_space, "n"):
+        raise ValueError(f"R2D2 needs discrete actions; --env={args.env} has "
+                         f"{env.action_space}")
     obs_shape = tuple(env.observation_spec().shape)
-    if args.env in PIXEL_ENVS:
+    if args.env in ATARI_FRAME_ENVS:
         net = DuelingLSTMDQNNet(
             num_actions=env.action_space.n, frame_shape=obs_shape[:2],
             seed=0, device=device,
@@ -543,15 +743,17 @@ def _r2d2_learner(args, env, optimizer, device):
         torch.full((args.num_eval_envs,), config.eval_epsilon, device=device),
     ])
     agent = r2d2.R2D2Agent(net, epsilons)
-    engine = RolloutEngine(
-        env, agent, args.unroll_length, num_overlapping_steps=args.burn_in,
-        seed=1,
-    )
+    engine = _engine(args, env, host, agent, device, overlap=args.burn_in)
+    if host:
+        learner = r2d2.R2D2HostLearner(agent, config, optimizer,
+                                       args.num_envs, args.unroll_length)
+        return learner, _offpolicy_host_loop(
+            args, engine, config.importance_sampling_exponent, device)
     learner = r2d2.R2D2Learner(engine, agent, config, optimizer, seed=2)
     return learner, r2d2.learner_loop
 
 
-def _ppo_learner(args, env, optimizer, device):
+def _ppo_learner(args, env, host, optimizer, device):
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agent import PolicyAgent
     from seed_rl_torch.agents.ppo import policy_losses
@@ -573,22 +775,17 @@ def _ppo_learner(args, env, optimizer, device):
     from seed_rl_torch.agents.ppo.policy_regularizers import (
         KLPolicyRegularizer,
     )
-    from seed_rl_torch.models import AtariPolicyNet, MLPAndLSTM
+    from seed_rl_torch.models import MLPAndLSTM
     from seed_rl_torch.ops.advantages import GAE, VTrace
     from seed_rl_torch.ops.popart import PopArt
     from seed_rl_torch.ops.running_statistics import AverageMeanStd
-    from seed_rl_torch.rollout import RolloutEngine
 
     space = env.action_space
     obs_shape = tuple(env.observation_spec().shape)
-    if hasattr(space, "n"):  # discrete: a recurrent net
+    if hasattr(space, "n") or hasattr(space, "nvec"):  # discrete
         dist = pd.get_parametric_distribution_for_action_space(space)
-        if args.env in PIXEL_ENVS:
-            net = AtariPolicyNet(
-                parametric_distribution_param_size=dist.param_size,
-                frame_shape=obs_shape[:2], stack_size=4, lstm_size=256,
-                seed=0, device=device)
-        else:
+        net = _policy_net(args, env, dist, device)
+        if net is None:
             net = MLPAndLSTM(
                 parametric_distribution_param_size=dist.param_size,
                 input_size=math.prod(obs_shape), seed=0, device=device)
@@ -637,15 +834,18 @@ def _ppo_learner(args, env, optimizer, device):
                                        else "shuffle"),
         batches_per_step=args.batches_per_step,
     )
-    engine = RolloutEngine(env, agent, args.unroll_length, seed=1)
+    engine = _engine(args, env, host, agent, device)
     learner = PPOLearner(engine, agent, loss, config, optimizer, seed=2)
+    if host:
+        return learner, _host_loop(engine,
+                                   pipeline=args.pipeline_host_rollouts)
     return learner, functools.partial(
         learner_loop, num_checkpoints=args.num_checkpoints,
         num_saved_models=args.num_saved_models,
         num_snapshots=args.num_snapshots, logdir=args.logdir)
 
 
-def _sac_learner(args, env, optimizer, device):
+def _sac_learner(args, env, host, optimizer, device):
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agents import sac
     from seed_rl_torch.envs import BitFlippingEnv
@@ -655,12 +855,13 @@ def _sac_learner(args, env, optimizer, device):
         VisualActorCritic,
     )
     from seed_rl_torch.ops.normalizer import observation_width
-    from seed_rl_torch.rollout import RolloutEngine
 
     space = env.action_space
     dist = pd.get_parametric_distribution_for_action_space(space)
     discrete = hasattr(space, "n")
     spec = env.observation_spec()
+    # Frames take VisualActorCritic; the JAX CLI builds it on Catch only,
+    # and an MLP over the frames of the host envs, which cannot act.
     net_type = (VisualActorCritic if args.env in PIXEL_ENVS
                 else ActorCriticLSTM if args.sac_net == "lstm"
                 else ActorCriticMLP)
@@ -690,6 +891,13 @@ def _sac_learner(args, env, optimizer, device):
         her_window_length=her_window,
         polyak=args.polyak,
     )
+    if host:
+        engine = _engine(args, env, host, agent, device)
+        learner = sac.SACHostLearner(agent, config, optimizer, args.num_envs,
+                                     args.unroll_length, seed=2)
+        return learner, _offpolicy_host_loop(args, engine, 0.0, device)
+    from seed_rl_torch.rollout import RolloutEngine
+
     engine = RolloutEngine(env, agent, her_window or args.unroll_length,
                            seed=1)
     learner = sac.SACLearner(

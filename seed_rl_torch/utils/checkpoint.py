@@ -124,9 +124,14 @@ def load_into(learner, state, saved: dict, fields: Optional[Iterable[str]]
 
 def _generators(learner) -> List[torch.Generator]:
     """A learner's random streams: its envs', its rollout engine's and its
-    own."""
-    return [learner.engine.env.generator, learner.engine.generator,
-            learner.generator]
+    own, those it has (host envs draw from their own numpy generators, and
+    a host off-policy learner's engine is the loop's)."""
+    engine = getattr(learner, "engine", None)
+    env = getattr(engine, "env", None)
+    return [g for g in (getattr(env, "generator", None),
+                        getattr(engine, "generator", None),
+                        getattr(learner, "generator", None))
+            if g is not None]
 
 
 def generator_states(learner) -> List[torch.Tensor]:

@@ -297,9 +297,11 @@ def test_train_main_remat_torso_on_cpu():
     (["--env=catch", "--conv_net=atari"], ValueError),
     (["--env=toy", "--conv_net=impala_deep"], ValueError),
     (["--env=catch", "--remat_torso"], ValueError),
-    (["--env=dmlab"], NotImplementedError),
+    (["--env=synthetic_atari", "--normalize_observations"],
+     NotImplementedError),
     (["--env=catch_continuous"], NotImplementedError),
-    (["--agent=r2d2", "--env=atari"], NotImplementedError),
+    (["--agent=r2d2", "--env=synthetic_atari_host",
+      "--normalize_observations"], NotImplementedError),
     (["--agent=sac", "--env=synthetic_atari"], NotImplementedError),
 ])
 def test_train_main_refuses_pixel_options_it_does_not_take(argv, error):

@@ -488,7 +488,8 @@ def test_train_main_r2d2_on_cpu():
 @pytest.mark.parametrize("flags", [
     ["--agent=r2d2", "--env=toy"],
     ["--agent=vtrace", "--env=discrete_match"],
-    ["--agent=r2d2", "--env=discrete_match", "--replay_ratio=0.75"],
+    ["--agent=r2d2", "--env=discrete_match",
+     "--agent_module=custom_ppo_composition"],
     ["--agent=r2d2", "--env=discrete_match", "--num_replicas=2"],
     ["--agent=r2d2", "--env=discrete_match", "--run_mode=actor"],
 ])

@@ -329,7 +329,8 @@ def test_train_main_r2d2_from_pixels_on_cpu(env, actions):
     (["--env=catch", "--conv_net=impala_deep"], ValueError),
     (["--env=synthetic_atari", "--conv_net=atari"], ValueError),
     (["--env=catch", "--remat_torso"], ValueError),
-    (["--env=atari"], NotImplementedError),
+    (["--env=synthetic_atari_host", "--normalize_observations"],
+     NotImplementedError),
     (["--env=catch", "--normalize_observations"], NotImplementedError),
 ])
 def test_train_main_r2d2_refuses_pixel_options(flags, error):

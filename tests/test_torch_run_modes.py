@@ -13,8 +13,12 @@ deterministic policy steps that ``--run_mode=eval`` takes.
 - ``--run_mode=profile`` writes a Chrome trace and one JSON line.
 - ``--init_checkpoint`` warm-starts a run with another ``num_envs``; a
   restart on its own logdir then resumes from there.
-- What stays refused: ``--run_mode={actor,learner}``,
-  ``--checkpoint_replay``, and PPO's action-point counts elsewhere.
+- What stays refused: ``--run_mode={actor,learner}``, more than one
+  replica, PPO's action-point counts elsewhere, and the host-env flags
+  where the JAX CLI ignores them (``--checkpoint_replay`` and
+  ``--replay_ratio`` outside R2D2 and SAC on host envs,
+  ``--pipeline_host_rollouts`` on device envs) or asserts
+  (``--run_mode=profile`` on host envs).
 """
 
 import json
@@ -233,12 +237,27 @@ def test_init_checkpoint_warm_starts_then_resumes_its_own(tmp_path):
      NotImplementedError),
     (["--agent=sac", "--env=toy", "--run_mode=learner"],
      NotImplementedError),
-    (["--agent=r2d2", "--env=discrete_match", "--checkpoint_replay"],
+    (["--agent=r2d2", "--env=discrete_match", "--num_replicas=2"],
      NotImplementedError),
     (["--agent=vtrace", "--env=toy", "--num_snapshots=2"], ValueError),
     (["--agent=r2d2", "--env=discrete_match", "--num_checkpoints=1"],
      ValueError),
     (["--agent=sac", "--env=toy", "--num_saved_models=1"], ValueError),
+    # The host-env flags where the JAX CLI ignores them, or asserts.
+    (["--agent=r2d2", "--env=discrete_match", "--checkpoint_replay"],
+     ValueError),
+    (["--agent=ppo", "--env=synthetic_atari_host", "--checkpoint_replay"],
+     ValueError),
+    (["--agent=sac", "--env=toy", "--replay_ratio=0.5"], ValueError),
+    (["--agent=vtrace", "--env=toy", "--pipeline_host_rollouts"],
+     ValueError),
+    (["--agent=vtrace", "--env=synthetic_atari_host", "--run_mode=profile"],
+     ValueError),
+    (["--agent=r2d2", "--env=synthetic_atari_host",
+      "--train_batches_per_step=2"], ValueError),
+    (["--agent=ppo", "--env=synthetic_atari_host", "--num_checkpoints=1"],
+     ValueError),
+    (["--agent=r2d2", "--env=mujoco", "--num_envs=1"], ValueError),
 ])
 def test_what_stays_refused(flags, error, tmp_path):
     with pytest.raises(error):

@@ -303,8 +303,9 @@ def test_train_main_on_cpu(env):
 
 
 @pytest.mark.parametrize("flag", [
-    "--agent=sac", "--env=atari", "--run_mode=actor", "--checkpoint_replay",
-    "--replay_ratio=0.5", "--normalize_observations",
+    "--agent=sac", "--run_mode=learner", "--run_mode=actor",
+    "--num_replicas=2", "--agent_module=custom_ppo_composition",
+    "--normalize_observations",
 ])
 def test_train_main_refuses_what_is_not_ported(flag):
     argv = ["--agent=r2d2", "--env=discrete_match", "--device=cpu", flag]
