@@ -120,7 +120,7 @@ Phases, in order; any failure exits non-zero:
      (a) R2D2 at phase 6's knobs with DuelingLSTMDQNNet (LSTM 512), the
          replay in host RAM (phase 9's 10k unrolls, or the largest multiple
          of 1000 that fits a quarter of MemAvailable), --replay_ratio=0.75:
-         4 cycles, the first only filling the replay, plain and then with
+         3 cycles, the first only filling the replay, plain and then with
          --pipeline_host_rollouts; the batches of each cycle must be the
          owed formula's, B2 launched once per insert and per batch, the
          written-back priorities finite, the learner on the card, and B2
@@ -134,22 +134,54 @@ Phases, in order; any failure exits non-zero:
      (d) SAC through host_offpolicy_loop on HostToyEnv (this script's numpy
          toy env, Box actions), ActorCriticMLP (256, 256), replay ratio 4,
          3 cycles;
-     (e) (a)'s path with --logdir --checkpoint_replay: 2 cycles, then a
-         resumed call of 2: the restored learner state and replay must
-         equal the saved ones bitwise; the replay's GB and its save and
-         restore seconds are printed.
+     (e) (a)'s path with --logdir --checkpoint_replay: 1 cycle (filling
+         the replay), then a resumed call of 1 (training from the restored
+         replay): the restored learner state and replay must equal the
+         saved ones bitwise; the replay's GB and its save and restore
+         seconds are printed.
      Each path prints its cycle's ms split into host env stepping, policy
      steps, copies, items, insert, sample wait and train ms per batch,
      env frames/s, launches per cycle, the device idle share over one
      profiled cycle, peak device memory and process RSS;
- 16. print the V-trace and n-step launches of each path, and the kernels
+ 16. the remote-actor paths: the learner in this process through
+     seed_rl_torch.train.main(--run_mode=learner) on the card (SAC through
+     remote.run_remote_offpolicy_learner), its actors processes of the
+     CLI's actor loop (remote.actor_main) through this script's
+     remote_atari_actor on synthetic_atari_host with episodes of 40 steps
+     (SAC's: remote_sac_actor on HostToyEnv), 32 envs each, at a unix
+     socket in the temp directory; the launch counts reset just before
+     each path:
+     (a) V-trace with AtariPolicyNet, 4 actors (128 envs), unroll 32, 3
+         updates: one B1 launch each, B1 against its plain version on the
+         last unroll updated on;
+     (b) R2D2 at phase 6's knobs with DuelingLSTMDQNNet, 4 actors,
+         --replay_ratio=0.75 (insertion batches of 85), a 1000-unroll host
+         replay that trains from its second insert, 5 inserts: actor 0 is
+         killed (SIGKILL) after the first insert and replaced on its env
+         ids, and the learner holds its later inserts until an episode of
+         the replacement's is counted; B2 once per insert and per batch,
+         and against its plain version on a batch of the replay;
+     (c) PPO with AtariPolicyNet at phase 11's knobs, 2 actors, 2 steps;
+     (d) SAC with ActorCriticMLP (256, 256), 2 actors, batch 256, ratio 4,
+         5 inserts.
+     Each path holds the learner's completed returns against the actors'
+     own, life by life, exactly (the replaced actor's running episodes
+     left out), requires every actor to stop cleanly without having
+     initialised CUDA, and prints the server's requests/s, batches/s and
+     batch fill, the handler's ms per batch in three parts, the learner's
+     waits for unrolls, its update or train-batch ms, env frames/s
+     trained (less (b)'s hold of the inserts), the device idle share over one profiled update or cycle,
+     peak device memory and RSS, and the actors' inference and env-step
+     timings;
+ 17. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phases 14's and 15's, the
-     n-step kernel's those of both R2D2 paths and of phases 14's and 15's.
+     those of all three V-trace paths and of phases 14's, 15's and 16's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's, 15's
+     and 16's.
      The PPO and SAC paths launch neither kernel: the PPO advantage
      estimators are plain PyTorch and SAC has no recursion over time, as
      in the JAX package.
@@ -166,6 +198,7 @@ import glob
 import json
 import math
 import os
+import signal
 import struct
 import subprocess
 import sys
@@ -1464,7 +1497,7 @@ def run_checkpoint_paths(smi):
 # to the largest multiple of 1000 that fits a quarter of MemAvailable.
 # A call runs HOST_R2D2_CYCLES cycles: the minimum size is one cycle's
 # items + 1, so the first cycle only fills the replay.
-HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 4, 2, 64
+HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 3, 2, 64
 HOST_R2D2_TRAINING = R2D2_ENVS - R2D2_EVAL_ENVS
 HOST_R2D2_MIN = HOST_R2D2_TRAINING + 1
 HOST_REPLAY_RATIO = 0.75  # the JAX CLI's default
@@ -2011,9 +2044,10 @@ def run_host_sac(smi, device):
 
 
 def run_host_resume(smi, replay_unrolls, logdir):
-    """Phase 15 (e): (a)'s path with --logdir --checkpoint_replay: 2
-    cycles, a save, then a resume of 2 cycles; the restored learner state
-    and replay must equal the saved ones bitwise. Returns B2 launches."""
+    """Phase 15 (e): (a)'s path with --logdir --checkpoint_replay:
+    HOST_RESUME_CYCLES cycles, a save, then a resume of as many; the
+    restored learner state and replay must equal the saved ones bitwise.
+    Returns B2 launches."""
     from seed_rl_torch import train
     from seed_rl_torch.replay_host import HostReplayBuffer
     from seed_rl_torch.utils import checkpoint as ckpt
@@ -2120,6 +2154,664 @@ def run_host_paths(smi, device):
         run_host_ppo(smi)
         run_host_sac(smi, device)
         nstep += run_host_resume(smi, unrolls, os.path.join(root, "r2d2"))
+    return vtrace, nstep, vtrace_err, nstep_err
+
+
+# Phase 16: the remote-actor paths. The learner runs in this process on
+# the card through seed_rl_torch.train.main(--run_mode=learner ...); its
+# actors are processes of this script's remote_atari_actor (the CLI's actor
+# mode, remote.actor_main, on synthetic_atari_host's numpy Atari frames
+# with episodes of REMOTE_EPISODE steps, so that the learner's returns can
+# be held against the actors' own), REMOTE_ACTOR_ENVS envs each, at a
+# unix socket in the temp directory. The paths:
+# (a) V-trace, 4 actors, unroll 32, 3 updates; (b) R2D2 at the R2D2 knobs
+# (unroll 80 + burn-in 40, batch 64, n 5, gamma 0.997, --replay_ratio 0.75:
+# insertion batches of 85), a 1000-unroll host replay, 2 inserts before
+# training, 4 cycles after the first, one actor killed after the first
+# insert and replaced on its env ids; (c) PPO at phase 11's knobs, 2 actors,
+# 2 steps; (d) SAC on HostToyEnv (this script's actors), ActorCriticMLP
+# (256, 256), batch 256, replay ratio 4, 4 cycles after the first.
+REMOTE_ACTOR_ENVS, REMOTE_EPISODE = 32, 40
+REMOTE_VTRACE_ACTORS, REMOTE_VTRACE_UNROLL, REMOTE_VTRACE_UPDATES = 4, 32, 3
+REMOTE_R2D2_ACTORS, REMOTE_R2D2_REPLAY, REMOTE_R2D2_BATCH = 4, 1000, 64
+REMOTE_R2D2_INSERTION = round(REMOTE_R2D2_BATCH / HOST_REPLAY_RATIO)  # 85
+REMOTE_R2D2_MIN = 2 * REMOTE_R2D2_INSERTION
+REMOTE_PPO_ACTORS = 2
+REMOTE_SAC_ACTORS, REMOTE_SAC_BATCH, REMOTE_SAC_RATIO = 2, 256, 4.0
+REMOTE_SAC_INSERTION = round(REMOTE_SAC_BATCH / REMOTE_SAC_RATIO)  # 64
+REMOTE_TRAIN_CYCLES = 4  # off-policy cycles after the first
+
+
+class RemoteFleet:
+    """The actor processes of one phase-16 path: started with their
+    output in files, stopped with SIGTERM (each prints its steps, timings
+    and whether CUDA was initialised) or killed with SIGKILL."""
+
+    def __init__(self, name, directory):
+        self.name, self.directory = name, directory
+        from seed_rl_torch.runtime.transport import unique_socket_path
+
+        self.address = unique_socket_path(f"chip_smoke_{name[:1]}")
+        self.lives = []  # (env_id_offset, process, stdout path)
+
+    def start(self, argv, offset):
+        out = os.path.join(self.directory,
+                           f"{self.name}_{len(self.lives)}.out")
+        with open(out, "w") as stdout, open(out + ".err", "w") as stderr:
+            proc = subprocess.Popen(
+                [sys.executable, *argv], stdout=stdout, stderr=stderr,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, "PYTHONPATH": os.path.dirname(
+                    os.path.abspath(__file__))})
+        self.lives.append((offset, proc, out))
+
+    def start_atari(self, offset):
+        self.start(["-c", "import chip_smoke; chip_smoke.remote_atari_actor("
+                    f"{self.address!r}, {offset}, {REMOTE_ACTOR_ENVS})"],
+                   offset)
+
+    def kill(self, index):
+        proc = self.lives[index][1]
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+
+    def stop(self):
+        """Stops every actor still running, once it can stop cleanly (its
+        ``actor_started`` line); returns ({env id: [returns of each life, in
+        order]}, the final records). Fails if an actor that was not killed
+        gives no final record, exits non-zero or initialised CUDA."""
+        deadline = time.time() + 120
+        for _, proc, out in self.lives:
+            while proc.poll() is None and time.time() < deadline:
+                with open(out) as f:
+                    if "actor_started" in f.readline():
+                        break
+                time.sleep(0.1)
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for _, proc, _ in self.lives:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                raise RuntimeError(f"{self.name}: an actor ignored SIGTERM")
+        lives, finals = {}, []
+        for offset, proc, out in self.lives:
+            episodes, final = {}, None
+            with open(out) as f:
+                for line in f:
+                    record = json.loads(line)
+                    if "actor_episode" in record:
+                        ep = record["actor_episode"]
+                        episodes.setdefault(ep["env_id"], []).append(
+                            ep["return"])
+                    elif "actor" in record:
+                        final = record["actor"]
+            for env_id in range(offset, offset + REMOTE_ACTOR_ENVS):
+                lives.setdefault(env_id, []).append(episodes.get(env_id, []))
+            if proc.returncode == -signal.SIGKILL:
+                continue
+            if proc.returncode != 0 or final is None:
+                with open(out + ".err") as f:
+                    err = f.read()[-3000:]
+                raise RuntimeError(f"{self.name}: an actor exited "
+                                   f"{proc.returncode}:\n{err}")
+            if final["cuda_initialized"]:
+                raise RuntimeError(f"{self.name}: an actor initialised CUDA")
+            finals.append(final)
+        return lives, finals
+
+    def close(self):
+        for _, proc, _ in self.lives:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def remote_atari_actor(address, offset, num_envs):
+    """Phase 16 (a)-(c)'s actor process: --run_mode=actor's loop over
+    synthetic_atari_host envs whose episodes last REMOTE_EPISODE steps."""
+    from seed_rl_torch.envs.host import HostBatchedEnv
+    from seed_rl_torch.envs.synthetic import SyntheticAtariGymEnv
+    from seed_rl_torch.remote import actor_main
+
+    actor_main(lambda: HostBatchedEnv(
+        lambda i: SyntheticAtariGymEnv(episode_length=REMOTE_EPISODE),
+        num_envs, num_threads=min(num_envs, 16)), address,
+        env_id_offset=offset)
+
+
+def remote_sac_actor(address, offset, num_envs):
+    """Phase 16 (d)'s actor process: HostToyEnv envs against the learner."""
+    from seed_rl_torch.envs.host import HostBatchedEnv
+    from seed_rl_torch.remote import actor_main
+
+    actor_main(lambda: HostBatchedEnv(lambda i: HostToyEnv(), num_envs,
+                                      num_threads=min(num_envs, 16)),
+               address, env_id_offset=offset)
+
+
+def _split_lives(returns, lives):
+    """How many of each actor life's returns the learner's ``returns``
+    hold, when they are, life by life in order, all of that life's or all
+    but its last (whose done-carrying request the learner may not have
+    served); None otherwise."""
+    if not lives:
+        return [] if not returns else None
+    life = lives[0]
+    for k in (len(life), len(life) - 1):
+        if k >= 0 and returns[:k] == life[:k]:
+            rest = _split_lives(returns[k:], lives[1:])
+            if rest is not None:
+                return [k] + rest
+    return None
+
+
+def _check_returns(name, stats, lives):
+    """The learner's completed returns against the actors': exactly equal,
+    life by life. Returns (episodes matched, per-life counts by env)."""
+    matched, splits = 0, {}
+    for env_id, returns in stats.completed_returns.items():
+        split = _split_lives(list(returns), lives.get(env_id, []))
+        if split is None:
+            raise RuntimeError(f"{name}: env {env_id}'s learner returns "
+                               f"{list(returns)} are not its actors' "
+                               f"{lives.get(env_id)}")
+        matched += sum(split)
+        splits[env_id] = split
+    if not matched:
+        raise RuntimeError(f"{name}: the learner completed no episode")
+    return matched, splits
+
+
+class RemoteTimer:
+    """While a phase-16 learner runs, wraps the remote runtime's methods:
+    keeps the bridge, the server's stats and serving seconds, the learner's
+    wait for unrolls and its updates or train batches (each ending in a
+    synchronize), the last unroll updated on, the replay and its inserts;
+    gives the learner's episode stats a long memory; profiles the device
+    from the start of update or cycle ``REMOTE_PROFILED`` to the next. With
+    ``hold`` the learner's later inserts wait (at most 120 s) until the
+    handler has counted an episode of a replaced actor, so that the learner
+    still serves then."""
+
+    def __init__(self, profiled, hold=False):
+        self.profiled, self.hold = profiled, hold
+
+    def _patch(self, owner, name, make):
+        original = getattr(owner, name)
+        self._saved.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def __enter__(self):
+        from seed_rl_torch import remote
+        from seed_rl_torch.agents import r2d2, sac, vtrace
+        from seed_rl_torch.agents.ppo import learner as ppo
+        from seed_rl_torch.replay_host import HostReplayBuffer
+        from seed_rl_torch.runtime.actor import InferenceBridge
+        from seed_rl_torch.runtime.inference_server import InferenceServer
+
+        self._saved = []
+        self.bridge = self.replay = self.last_unroll = self.stats = None
+        self.server_stats, self.serve_s = None, None
+        self.wait_s, self.update_s = [], []
+        self.update_ends, self.inserts = [], 0
+        self.first_insert = threading.Event()
+        self.replacement_started = threading.Event()
+        self.replacement_counted = threading.Event()
+        self.held_s = 0.0
+        self.window_ms, self._prof = None, None
+        timer = self
+
+        def bridge_init(init):
+            def wrapped(bridge, *args, **kw):
+                init(bridge, *args, **kw)
+                timer.bridge = bridge
+            return wrapped
+
+        def serve(original):
+            def wrapped(server, *args, **kw):
+                original(server, *args, **kw)
+                timer._t_serve = time.perf_counter()
+            return wrapped
+
+        def shutdown(original):
+            def wrapped(server):
+                if timer.server_stats is None:
+                    timer.serve_s = time.perf_counter() - timer._t_serve
+                    timer.server_stats = server.stats
+                    timer.batch_size = server.batch_size
+                return original(server)
+            return wrapped
+
+        def next_batch(original):
+            def wrapped(bridge, *args, **kw):
+                cycle = len(timer.wait_s) + 1
+                if cycle == timer.profiled:
+                    torch.cuda.synchronize()
+                    timer._prof = torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA])
+                    timer._prof.start()
+                    timer._t0 = time.perf_counter()
+                elif cycle == timer.profiled + 1:
+                    timer._stop_profile()
+                t0 = time.perf_counter()
+                out = original(bridge, *args, **kw)
+                timer.wait_s.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def timed_update(original):
+            def wrapped(learner, state, unroll, *args, **kw):
+                timer.last_unroll = unroll
+                t0 = time.perf_counter()
+                out = original(learner, state, unroll, *args, **kw)
+                torch.cuda.synchronize()
+                timer.update_s.append(time.perf_counter() - t0)
+                timer.update_ends.append(time.perf_counter())
+                return out
+            return wrapped
+
+        def timed_batch(original):
+            def wrapped(*args, **kw):
+                t0 = time.perf_counter()
+                out = original(*args, **kw)
+                torch.cuda.synchronize()
+                timer.update_s.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def insert(original):
+            def wrapped(replay, items, priorities):
+                if timer.hold and timer.first_insert.is_set():
+                    t0 = time.perf_counter()
+                    timer.replacement_counted.wait(timeout=120)
+                    timer.held_s += time.perf_counter() - t0
+                timer.replay = replay
+                timer.inserts += 1
+                timer.first_insert.set()
+                out = original(replay, items, priorities)
+                timer.update_ends.append(time.perf_counter())
+                return out
+            return wrapped
+
+        def stats_init(init):
+            def wrapped(stats, num_envs, keep_last=16):
+                init(stats, num_envs, keep_last=10**6)
+                if timer.stats is None:
+                    timer.stats = stats  # the training envs'
+            return wrapped
+
+        def accounting(original):
+            def wrapped(*args, **kw):
+                hook = original(*args, **kw)
+                restarted_seen = set()
+
+                def on_timesteps(env_ids, env_output, restarted):
+                    if timer.replacement_started.is_set():
+                        restarted_seen.update(restarted.tolist())
+                    hook(env_ids, env_output, restarted)
+                    if restarted_seen & set(
+                            env_ids[env_output.done].tolist()):
+                        timer.replacement_counted.set()
+                return on_timesteps
+            return wrapped
+
+        self._patch(InferenceBridge, "__init__", bridge_init)
+        self._patch(InferenceBridge, "next_unroll_batch", next_batch)
+        self._patch(InferenceServer, "serve", serve)
+        self._patch(InferenceServer, "shutdown", shutdown)
+        for learner in (vtrace.VTraceLearner, ppo.PPOLearner):
+            self._patch(learner, "update", timed_update)
+        for learner in (r2d2.R2D2HostLearner, sac.SACHostLearner):
+            self._patch(learner, "train_on_batch", timed_batch)
+        self._patch(HostReplayBuffer, "insert", insert)
+        self._patch(remote.PerEnvEpisodeStats, "__init__", stats_init)
+        self._patch(remote, "episode_accounting", accounting)
+        return self
+
+    def _stop_profile(self):
+        torch.cuda.synchronize()
+        self.window_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.stop()
+
+    def __exit__(self, *exc):
+        if self._prof is not None and self.window_ms is None:
+            self._stop_profile()
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+
+    def report(self, name, frames_per_update, launches, finals, smi):
+        """Prints the path's server, handler, learner, device and actor
+        numbers."""
+        stats, secs = self.server_stats, self.serve_s
+        fill = stats["total_requests"] / max(stats["total_batches"], 1)
+        bridge = self.bridge
+        batches = max(bridge.handler_batches, 1)
+        h = {k: v / batches * 1e3 for k, v in bridge.handler_seconds.items()}
+        print(f"{name} server: {stats['total_requests']} requests and "
+              f"{stats['total_batches']} batches in {secs:.1f} s of serving: "
+              f"{stats['total_requests'] / secs:.1f} requests/s, "
+              f"{stats['total_batches'] / secs:.1f} batches/s, mean batch "
+              f"fill {fill:.1f} of --inference_batch_size {self.batch_size}; "
+              f"{stats.get('connections', 0)} connections ({smi})")
+        total = sum(h.values())
+        print(f"{name} handler: {total:.2f} ms per batch: restart "
+              f"bookkeeping, gather and upload "
+              f"{h['gather_upload']:.2f} ms, policy step "
+              f"{h['policy']:.2f} ms, "
+              f"download, scatter and store {h['store']:.2f} ms "
+              f"({bridge.handler_batches} full batches, "
+              f"{bridge.handler_rows / batches:.1f} rows each) ({smi})")
+        n = len(self.update_s)
+        ends = self.update_ends
+        # The harness's hold of the inserts (path (b)) lies between the
+        # first insert and the last: it is not the learner's time.
+        rate = (frames_per_update * (len(ends) - 1)
+                / (ends[-1] - ends[0] - self.held_s)
+                if len(ends) > 1 else float("nan"))
+        rss, hwm = _rss_gb()
+        print(f"{name} learner: waits for unrolls "
+              f"{[round(w * 1e3, 1) for w in self.wait_s]} ms per update or "
+              f"cycle; {n} updates or train batches of "
+              f"{np.mean(self.update_s) * 1e3 if n else float('nan'):.1f} ms "
+              f"each (ending in a synchronize); {rate:.1f} env frames/s "
+              f"trained from the first update or insert to the last, less "
+              f"the {self.held_s:.1f} s the inserts were held; B1 "
+              f"launches {launches['vtrace']}, B2 launches "
+              f"{launches['nstep']}; peak device memory "
+              f"{_peak_memory_gb():.3f} GB; process RSS {rss} GB (peak "
+              f"{hwm:.2f} GB) ({smi})")
+        if self.window_ms is not None:
+            kernels = _device_kernels(self._prof)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            count = sum(e.count for e in kernels)
+            print(f"{name} profiler: update or cycle {self.profiled}, "
+                  f"{self.window_ms:.1f} ms from its wait for unrolls to the "
+                  f"next's (or the run's end), holds {busy:.3f} ms of device "
+                  f"work in "
+                  f"{count:.0f} launches (the handler's policy steps "
+                  f"included): idle share {1 - busy / self.window_ms:.3f} "
+                  f"({smi})")
+        timings = {key: [f[key] for f in finals if key in f]
+                   for key in ("actor/elapsed_inference_s",
+                               "actor/elapsed_env_step_s")}
+        print(f"{name} actors: {len(finals)} stopped cleanly, none "
+              f"initialised CUDA; steps {[f['steps'] for f in finals]}; "
+              + "; ".join(f"{key} {np.mean(v) * 1e3:.2f} ms (mean of "
+                          f"{len(v)})" for key, v in timings.items() if v)
+              + f" ({smi})")
+
+
+def _remote_flags(agent, fleet, envs, unroll, extra=()):
+    return [f"--agent={agent}", "--env=synthetic_atari_host",
+            f"--num_envs={envs}", f"--unroll_length={unroll}",
+            f"--server_address={fleet.address}",
+            "--log_every_steps=1", *extra]
+
+
+def _check_vtrace_on_unroll(name, learner, unroll):
+    from seed_rl_torch.agents import vtrace as vtrace_agent
+    from seed_rl_torch.ops import vtrace as plain
+    from seed_rl_torch.ops.cuda import vtrace_kernel
+
+    with torch.no_grad():
+        inputs, _ = vtrace_agent.vtrace_inputs(
+            learner.config, learner.agent, learner.agent.distribution,
+            unroll)
+    got = vtrace_kernel.from_importance_weights(**inputs)
+    ref = plain.from_importance_weights(**inputs)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, ref):
+        torch.testing.assert_close(g, w, rtol=VTRACE_TOL, atol=VTRACE_TOL)
+        err = max(err, float((g - w).abs().max()))
+    print(f"{name}: vtrace on the run's last unroll "
+          f"{list(inputs['rewards'].shape)} matches the plain version, "
+          f"max|err|={err:.3e} (tol {VTRACE_TOL})")
+    return err
+
+
+def _run_remote_path(name, fleet, learn, profiled, hold=False, during=None):
+    """Drives one learner with its actors started; returns the timer,
+    the learner call's result, the launches, the lives and the finals."""
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    replacer = None
+    try:
+        with RemoteTimer(profiled, hold=hold) as t:
+            if during is not None:
+                replacer = threading.Thread(target=during, args=(t,))
+                replacer.start()
+            result = learn()
+            torch.cuda.synchronize()
+        launches = _launches()
+    finally:
+        if replacer is not None:
+            replacer.join(timeout=180)
+        try:
+            lives, finals = fleet.stop()
+        finally:
+            fleet.close()
+    if replacer is not None and replacer.is_alive():
+        raise RuntimeError(f"{name}: the actor replacement hung")
+    return t, result, launches, lives, finals
+
+
+def run_remote_vtrace(smi, directory):
+    """Phase 16 (a); returns (B1 launches, max |kernel - plain|)."""
+    from seed_rl_torch import train
+
+    name = "remote vtrace synthetic_atari_host"
+    start = time.perf_counter()
+    envs = REMOTE_VTRACE_ACTORS * REMOTE_ACTOR_ENVS
+    fleet = RemoteFleet("vtrace", directory)
+    flags = _remote_flags("vtrace", fleet, envs, REMOTE_VTRACE_UNROLL)
+    for k in range(REMOTE_VTRACE_ACTORS):
+        fleet.start_atari(k * REMOTE_ACTOR_ENVS)
+    frames = REMOTE_VTRACE_UPDATES * envs * REMOTE_VTRACE_UNROLL
+    t, (learner, state, metrics), launches, lives, finals = _run_remote_path(
+        name, fleet, lambda: train.main(
+            ["--run_mode=learner", *flags,
+             f"--total_environment_frames={frames}"]), profiled=2)
+    if state.step != REMOTE_VTRACE_UPDATES or launches != {
+            "vtrace": REMOTE_VTRACE_UPDATES, "nstep": 0}:
+        raise RuntimeError(f"{name}: {state.step} updates, launches "
+                           f"{launches}; want one B1 per update")
+    _finite(name, metrics)
+    matched, _ = _check_returns(name, t.stats, lives)
+    print(f"{name}: {REMOTE_VTRACE_ACTORS} actor processes x "
+          f"{REMOTE_ACTOR_ENVS} envs, AtariPolicyNet (LSTM 256), unroll "
+          f"{REMOTE_VTRACE_UNROLL}, {state.step} updates; the learner's "
+          f"{matched} completed returns equal the actors' own ({smi})")
+    t.report(name, envs * REMOTE_VTRACE_UNROLL, launches, finals, smi)
+    err = _check_vtrace_on_unroll(name, learner, t.last_unroll)
+    _print_path_end(name, start)
+    return launches["vtrace"], err
+
+
+def run_remote_r2d2(smi, directory):
+    """Phase 16 (b): R2D2 with an actor killed after the first insert and
+    replaced on its env ids; returns (B2 launches, max |kernel - plain|)."""
+    from seed_rl_torch import train
+
+    name = "remote r2d2 synthetic_atari_host"
+    start = time.perf_counter()
+    envs = REMOTE_R2D2_ACTORS * REMOTE_ACTOR_ENVS
+    cycles = 1 + REMOTE_TRAIN_CYCLES
+    fleet = RemoteFleet("r2d2", directory)
+    flags = _remote_flags("r2d2", fleet, envs, R2D2_UNROLL, (
+        f"--burn_in={R2D2_BURN_IN}", f"--batch_size={REMOTE_R2D2_BATCH}",
+        "--n_steps=5", "--discounting=0.997", "--learning_rate=1e-4",
+        "--clip_norm=80", f"--replay_buffer_size={REMOTE_R2D2_REPLAY}",
+        f"--replay_buffer_min_size={REMOTE_R2D2_MIN}",
+        f"--replay_ratio={HOST_REPLAY_RATIO}"))
+    for k in range(REMOTE_R2D2_ACTORS):
+        fleet.start_atari(k * REMOTE_ACTOR_ENVS)
+    frames = cycles * REMOTE_R2D2_INSERTION * R2D2_UNROLL
+    replaced = {}
+
+    def replace_actor(t):
+        if not t.first_insert.wait(timeout=120):
+            return
+        fleet.kill(0)
+        replaced["at"] = time.perf_counter() - start
+        t.replacement_started.set()
+        fleet.start_atari(0)
+
+    t, (learner, state, logs), launches, lives, finals = _run_remote_path(
+        name, fleet, lambda: train.main(
+            ["--run_mode=learner", *flags,
+             f"--total_environment_frames={frames}"]),
+        profiled=3, hold=True, during=replace_actor)
+    want = _owed_batches(cycles, REMOTE_R2D2_INSERTION, REMOTE_R2D2_BATCH,
+                         HOST_REPLAY_RATIO, REMOTE_R2D2_MIN,
+                         REMOTE_R2D2_REPLAY)
+    if state.step != sum(want) or t.inserts != cycles or launches != {
+            "vtrace": 0, "nstep": cycles + sum(want)}:
+        raise RuntimeError(f"{name}: {t.inserts} inserts, {state.step} "
+                           f"batches, launches {launches}; want {cycles}, "
+                           f"{sum(want)} ({want}) and one B2 each")
+    if "at" not in replaced or not t.replacement_counted.is_set():
+        raise RuntimeError(f"{name}: no actor was replaced, or no episode "
+                           "of the replacement was counted")
+    _finite(name, logs)
+    matched, splits = _check_returns(name, t.stats, lives)
+    from_replacement = sum(s[1] for e, s in splits.items()
+                           if e < REMOTE_ACTOR_ENVS and len(s) > 1)
+    if not from_replacement:
+        raise RuntimeError(f"{name}: no learner return from the replacement")
+    replay = t.replay
+    print(f"{name}: {REMOTE_R2D2_ACTORS} actor processes x "
+          f"{REMOTE_ACTOR_ENVS} envs, DuelingLSTMDQNNet (LSTM 512), unroll "
+          f"{R2D2_UNROLL} + burn-in {R2D2_BURN_IN}, insertion batches of "
+          f"{REMOTE_R2D2_INSERTION}, {t.inserts} inserts, batches {want}; "
+          f"actor 0 killed at {replaced['at']:.1f} s and replaced on env ids "
+          f"0-{REMOTE_ACTOR_ENVS - 1}; the learner held its inserts "
+          f"{t.held_s:.1f} s for the replacement's first episode; the "
+          f"learner's {matched} completed returns equal the actors' own, "
+          f"{from_replacement} of them the replacement's, and none mixes "
+          f"two lives; replay {replay.num_inserted} of {replay.size} "
+          f"unrolls, {replay.nbytes() / 1e9:.3f} GB in host RAM ({smi})")
+    t.report(name, REMOTE_R2D2_INSERTION * R2D2_UNROLL, launches, finals, smi)
+    _, _, items = replay.sample(REMOTE_R2D2_BATCH, learner.priority_exponent)
+    err = check_nstep_on_batch(name, learner, items)
+    _print_path_end(name, start)
+    return launches["nstep"], err
+
+
+def run_remote_ppo(smi, directory):
+    """Phase 16 (c): PPO at phase 11's knobs, 2 actors."""
+    from seed_rl_torch import train
+
+    path = PPO_PATHS["ppo_synthetic_atari"]
+    name = "remote ppo synthetic_atari_host"
+    start = time.perf_counter()
+    envs = REMOTE_PPO_ACTORS * REMOTE_ACTOR_ENVS
+    fleet = RemoteFleet("ppo", directory)
+    flags = _remote_flags("ppo", fleet, envs, path.unroll, (
+        *path.flags[1:], f"--epochs_per_step={path.epochs}",
+        f"--batches_per_step={path.minibatches}"))
+    for k in range(REMOTE_PPO_ACTORS):
+        fleet.start_atari(k * REMOTE_ACTOR_ENVS)
+    t, (learner, state, metrics), launches, lives, finals = _run_remote_path(
+        name, fleet, lambda: train.main(
+            ["--run_mode=learner", *flags,
+             f"--total_environment_frames={PPO_STEPS * envs * path.unroll}"]),
+        profiled=2)
+    updates = PPO_STEPS * path.epochs * path.minibatches
+    if state.step != PPO_STEPS or learner.optimizer.count != updates or any(
+            launches.values()):
+        raise RuntimeError(f"{name}: {state.step} steps, "
+                           f"{learner.optimizer.count} updates, launches "
+                           f"{launches}")
+    _finite(name, metrics)
+    matched, _ = _check_returns(name, t.stats, lives)
+    print(f"{name}: {REMOTE_PPO_ACTORS} actor processes x "
+          f"{REMOTE_ACTOR_ENVS} envs, AtariPolicyNet (LSTM 256), "
+          f"{path.epochs} x {path.minibatches} minibatches, {state.step} "
+          f"steps; the learner's {matched} completed returns equal the "
+          f"actors' own ({smi})")
+    t.report(name, envs * path.unroll, launches, finals, smi)
+    _print_path_end(name, start)
+
+
+def run_remote_sac(smi, directory, device):
+    """Phase 16 (d): SACHostLearner through run_remote_offpolicy_learner,
+    its actors on HostToyEnv."""
+    import functools
+
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch import optim, remote
+    from seed_rl_torch.agents import sac
+    from seed_rl_torch.envs.host import HostBatchedEnv
+    from seed_rl_torch.models import ActorCriticMLP
+    from seed_rl_torch.replay_host import HostReplayBuffer
+
+    name = "remote sac HostToyEnv"
+    start = time.perf_counter()
+    envs = REMOTE_SAC_ACTORS * REMOTE_ACTOR_ENVS
+    cycles = 1 + REMOTE_TRAIN_CYCLES
+    fleet = RemoteFleet("sac", directory)
+    for k in range(REMOTE_SAC_ACTORS):
+        offset = k * REMOTE_ACTOR_ENVS
+        fleet.start(["-c", "import chip_smoke; chip_smoke.remote_sac_actor("
+                     f"{fleet.address!r}, {offset}, {REMOTE_ACTOR_ENVS})"],
+                    offset)
+    spec_env = HostBatchedEnv(lambda i: HostToyEnv(), 1)
+    dist = pd.get_parametric_distribution_for_action_space(
+        spec_env.action_space)
+    obs_spec = spec_env.observation_spec()
+    spec_env.close()
+    agent = sac.SACAgent(ActorCriticMLP(dist.param_size, obs_spec,
+                                        n_critics=2, device=device), dist)
+    config = sac.SACConfig(batch_size=REMOTE_SAC_BATCH, unroll_length=1,
+                           replay_buffer_min_size=2 * REMOTE_SAC_INSERTION)
+    learner = sac.SACHostLearner(
+        agent, config, functools.partial(optim.ClippedAdam,
+                                         learning_rate=3e-4, clip_norm=40.0),
+        REMOTE_SAC_INSERTION, 1, seed=2)
+    replay = HostReplayBuffer(config.replay_buffer_size, 0.0, device=device)
+    t, (state, logs), launches, lives, finals = _run_remote_path(
+        name, fleet, lambda: remote.run_remote_offpolicy_learner(
+            agent, learner, replay, obs_spec, fleet.address,
+            cycles * REMOTE_SAC_INSERTION, unroll_length=1, num_envs=envs,
+            replay_ratio=REMOTE_SAC_RATIO,
+            replay_buffer_min_size=config.replay_buffer_min_size,
+            example_action=np.zeros(spec_env.action_space.shape,
+                                    np.float32),
+            unroll_timeout=120.0), profiled=3)
+    want = _owed_batches(cycles, REMOTE_SAC_INSERTION, REMOTE_SAC_BATCH,
+                         REMOTE_SAC_RATIO, config.replay_buffer_min_size,
+                         config.replay_buffer_size)
+    if state.step != sum(want) or t.inserts != cycles or any(
+            launches.values()):
+        raise RuntimeError(f"{name}: {t.inserts} inserts, {state.step} "
+                           f"batches, launches {launches}; want {cycles}, "
+                           f"{want}")
+    _finite(name, logs)
+    tensors = learner.parameters() + learner.state_tensors(state)
+    if any(x.device.type != "cuda" for x in tensors):
+        raise RuntimeError(f"{name}: tensors off the card")
+    matched, _ = _check_returns(name, t.stats, lives)
+    print(f"{name}: {REMOTE_SAC_ACTORS} actor processes x "
+          f"{REMOTE_ACTOR_ENVS} envs, ActorCriticMLP (256, 256), insertion "
+          f"batches of {REMOTE_SAC_INSERTION}, batches {want} of "
+          f"{REMOTE_SAC_BATCH}; the learner's {matched} completed returns "
+          f"equal the actors' own ({smi})")
+    t.report(name, REMOTE_SAC_INSERTION, launches, finals, smi)
+    _print_path_end(name, start)
+
+
+def run_remote_paths(smi, device):
+    """Phase 16; returns (B1 launches, B2 launches, B1 max err, B2 max
+    err)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as root:
+        vtrace, vtrace_err = run_remote_vtrace(smi, root)
+        nstep, nstep_err = run_remote_r2d2(smi, root)
+        run_remote_ppo(smi, root)
+        run_remote_sac(smi, root, device)
     return vtrace, nstep, vtrace_err, nstep_err
 
 
@@ -2261,6 +2953,13 @@ def main():
     vtrace_err = max(vtrace_err, vtrace_host_err)
     nstep_err = max(nstep_err, nstep_host_err)
     print(f"phase 15 (the host data paths) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["remote"], nstep_launches["remote"], vtrace_remote_err,
+     nstep_remote_err) = run_remote_paths(smi, device)
+    vtrace_err = max(vtrace_err, vtrace_remote_err)
+    nstep_err = max(nstep_err, nstep_remote_err)
+    print(f"phase 16 (the remote-actor paths) took "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "

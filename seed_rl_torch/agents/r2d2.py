@@ -78,12 +78,17 @@ class R2D2Agent:
         random_actions: Optional[torch.Tensor] = None,
         uniform: Optional[torch.Tensor] = None,
         deterministic: bool = False,
+        env_ids: Optional[torch.Tensor] = None,
     ) -> Tuple[QAgentOutput, Any]:
-        """One epsilon-greedy step on [B] inputs (batch position = env id),
-        or with ``deterministic`` the greedy one, which draws nothing.
+        """One epsilon-greedy step on [B] inputs, or with ``deterministic``
+        the greedy one, which draws nothing.
 
-        ``random_actions`` (int[B]) and ``uniform`` (f32[B] in [0, 1))
-        replace the generator's draws.
+        Row i takes the epsilon of env ``env_ids[i]`` (int[B] global env
+        ids), or of env i without them: in a rollout the batch position is
+        the env id, while a remote inference batch is any subset of the
+        envs (the reference gathers by id the same way,
+        agents/r2d2/learner.py:757-763). ``random_actions`` (int[B]) and
+        ``uniform`` (f32[B] in [0, 1)) replace the generator's draws.
         """
         output, new_state = self.net(prev_action, env_output, core_state)
         if deterministic:
@@ -97,7 +102,9 @@ class R2D2Agent:
             )
         if uniform is None:
             uniform = torch.rand((batch,), generator=generator, device=device)
-        take_random = uniform < self.epsilons
+        epsilons = (self.epsilons if env_ids is None
+                    else self.epsilons[env_ids])
+        take_random = uniform < epsilons
         action = torch.where(
             take_random, random_actions.to(torch.int32), output.action
         )

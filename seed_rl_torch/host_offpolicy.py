@@ -94,6 +94,37 @@ class _RolloutThread:
                 "pipelined rollout worker died") from self._error[0]
 
 
+def train_owed(learner, replay, state, owed: float, new_items: float,
+               max_batches: Optional[int] = None):
+    """The replay-ratio contract of one cycle: adds ``new_items / batch_size``
+    batches to the ``owed`` carry (``new_items`` is replay_ratio x the items
+    the cycle inserted) and trains the whole ones (at most ``max_batches``),
+    each on a prioritized sample whose priorities it writes back. Returns
+    (state, the carry left, each trained batch's logs).
+    """
+    owed += new_items / learner.batch_size
+    budget = int(owed)
+    if max_batches is not None:
+        budget = min(budget, max_batches)
+    priority_exp = learner.priority_exponent
+    batch_logs = []
+    for k in range(budget):
+        owed -= 1.0
+        if replay._prefetch_thread is None:
+            replay.sample_async(learner.batch_size, priority_exp)
+        indices, weights, batch = replay.wait_sample()
+        state, new_priorities, logs = learner.train_on_batch(
+            state, batch, torch.as_tensor(weights, device=learner.device))
+        # Draw and copy the next batch while this one trains, before
+        # waiting for its priorities.
+        if k + 1 < budget:
+            replay.sample_async(learner.batch_size, priority_exp)
+        if priority_exp:
+            replay.update_priorities(indices, new_priorities)
+        batch_logs.append(logs)
+    return state, owed, batch_logs
+
+
 def host_offpolicy_loop(
     learner,
     host_engine,
@@ -149,8 +180,6 @@ def host_offpolicy_loop(
     frames = 0
     window_logs = []
     logs: Dict[str, Any] = {}
-    priority_exp = learner.priority_exponent
-    batch_size = learner.batch_size
     rollout_wait_s = 0.0
     train_s = 0.0
     worker = _RolloutThread(host_engine, host_state) if pipeline else None
@@ -181,25 +210,12 @@ def host_offpolicy_loop(
 
             if replay.num_inserted >= replay_buffer_min_size:
                 t1 = time.perf_counter()
-                owed += replay_ratio * num_training / batch_size
-                budget = int(owed)
-                if max_train_batches_per_cycle is not None:
-                    budget = min(budget, max_train_batches_per_cycle)
-                for k in range(budget):
-                    owed -= 1.0
-                    if replay._prefetch_thread is None:
-                        replay.sample_async(batch_size, priority_exp)
-                    indices, weights, batch = replay.wait_sample()
-                    state, new_priorities, logs = learner.train_on_batch(
-                        state, batch, torch.as_tensor(weights, device=device))
-                    # Draw and copy the next batch while this one trains,
-                    # before waiting for its priorities.
-                    if k + 1 < budget:
-                        replay.sample_async(batch_size, priority_exp)
-                    if priority_exp:
-                        replay.update_priorities(indices, new_priorities)
-                    window_logs.append(logs)
-                if budget:
+                state, owed, batch_logs = train_owed(
+                    learner, replay, state, owed,
+                    replay_ratio * num_training, max_train_batches_per_cycle)
+                if batch_logs:
+                    window_logs.extend(batch_logs)
+                    logs = batch_logs[-1]
                     host_engine.publish(learner.agent)
                 train_s += time.perf_counter() - t1
 

@@ -45,13 +45,6 @@ from seed_rl_torch.rollout import (
 )
 
 
-def agent_tensors(agent):
-    """Everything an agent's policy step reads that training changes: its
-    network's parameters and buffers and its observation statistics."""
-    return (list(agent.net.parameters()) + list(agent.net.buffers())
-            + pytree.tree_leaves(getattr(agent, "obs_norm", None) or ()))
-
-
 class BehaviourPolicy:
     """A copy of an agent that acts while the original trains.
 
@@ -59,7 +52,10 @@ class BehaviourPolicy:
     caller's stream; ``refresh`` (the acting thread) copies the latest
     snapshot into the copy, on the acting stream, after the snapshot is
     made. A snapshot taken before an optimizer step keeps the values from
-    before it.
+    before it. The network's parameters and buffers are copied in place;
+    the observation statistics (``obs_norm``), which the agents replace
+    rather than update and whose leaves may share one tensor
+    (``normalizer.init``), are replaced by the snapshot's.
     """
 
     def __init__(self, agent):
@@ -70,13 +66,19 @@ class BehaviourPolicy:
 
     @torch.no_grad()
     def publish(self, agent):
-        snapshot = [t.detach().clone() for t in agent_tensors(agent)]
+        tensors = [t.detach().clone()
+                   for t in list(agent.net.parameters())
+                   + list(agent.net.buffers())]
+        obs_norm = getattr(agent, "obs_norm", None)
+        if obs_norm is not None:
+            obs_norm = pytree.tree_map(lambda t: t.detach().clone(),
+                                       obs_norm)
         event = None
-        if snapshot and snapshot[0].is_cuda:
+        if tensors and tensors[0].is_cuda:
             event = torch.cuda.Event()
             event.record()
         with self._lock:
-            self._pending = (snapshot, event)
+            self._pending = (tensors, obs_norm, event)
 
     @torch.no_grad()
     def refresh(self):
@@ -84,17 +86,20 @@ class BehaviourPolicy:
             pending, self._pending = self._pending, None
         if pending is None:
             return
-        snapshot, event = pending
-        targets = agent_tensors(self.agent)
+        snapshot, obs_norm, event = pending
+        targets = (list(self.agent.net.parameters())
+                   + list(self.agent.net.buffers()))
         if len(targets) != len(snapshot):
             raise ValueError("the published agent does not match the copy")
         if event is not None:
             stream = torch.cuda.current_stream()
             stream.wait_event(event)
-            for s in snapshot:
+            for s in snapshot + pytree.tree_leaves(obs_norm or ()):
                 s.record_stream(stream)
         for t, s in zip(targets, snapshot):
             t.copy_(s)
+        if hasattr(self.agent, "obs_norm"):
+            self.agent.obs_norm = obs_norm
 
 
 class HostRolloutState(NamedTuple):

@@ -61,11 +61,30 @@ Every agent checkpoints and logs as the JAX CLI does:
   (exports to ``<logdir>/saved_models/<frames>``) and ``--num_snapshots``
   (in-memory, on ``learner.snapshots``) at linspace frame marks.
 
-Other agent/env pairs, ``--run_mode={actor,learner}``, ``--agent_module``,
-observation normalization outside V-trace and SAC or on frames, and more
-than one replica are not ported yet and raise ``NotImplementedError``
-rather than being ignored. Where the JAX CLI accepts a flag and ignores
-it, or takes one it cannot use, this one raises ``ValueError``:
+The remote-actor runtime (``runtime/``, ``remote.py``), on the host envs:
+- ``--run_mode=learner`` serves batched inference at ``--server_address``
+  (a unix socket path, or ``host:port`` for fleets across machines) and
+  trains on the unrolls that actors stream to it: V-trace and PPO one
+  unroll per env per update, R2D2 and SAC through the host-RAM replay
+  under ``--replay_ratio`` (insertion batches of ``batch_size /
+  replay_ratio`` unrolls; R2D2's eval envs, the last ``--num_eval_envs``
+  ids, act with the eval epsilon and stay out of the replay).
+  ``--num_envs`` is the whole fleet's; ``--inference_batch_size`` (0: half
+  the envs) is the batch the server fills or flushes after 50 ms;
+- ``--run_mode=actor`` steps ``--num_envs`` host envs with global ids from
+  ``--env_id_offset`` against that server (for ``--num_actor_steps``
+  steps, 0 = until stopped), reconnecting when the learner goes away. It
+  never touches a CUDA device. It prints JSON lines: one once SIGTERM
+  stops it cleanly, one per episode it completes, and one when it stops,
+  with its timings and whether CUDA was initialised.
+``python -m seed_rl_torch.fleet`` starts a learner and its actors on one
+machine.
+
+Other agent/env pairs, ``--agent_module``, observation normalization
+outside V-trace and SAC or on frames, and more than one replica are not
+ported yet and raise ``NotImplementedError`` rather than being ignored.
+Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
+use, this one raises ``ValueError``:
 ``--conv_net=atari``, ``--conv_net=impala_deep`` and ``--remat_torso``
 where no conv net reads them, a ``--lambda_`` other than its default under
 ``--agent=vtrace``, the action-point counts outside ``--agent=ppo`` on a
@@ -74,9 +93,12 @@ and ``--sac_net=lstm`` on frames under ``--agent=sac``, HER on any env but
 ``bit_flipping`` or with windows shorter than ``unroll_length + 1``,
 ``--replay_ratio`` and ``--checkpoint_replay`` outside R2D2 and SAC on a
 host env (and ``--checkpoint_replay`` without ``--logdir``),
-``--pipeline_host_rollouts`` on a device env, ``--train_batches_per_step``
-under R2D2 on a host env, ``--run_mode=profile`` on a host env (the JAX
-CLI asserts), and R2D2 on an env without discrete actions.
+``--pipeline_host_rollouts`` on a device env or in the remote modes,
+``--train_batches_per_step`` under R2D2 on a host env, ``--run_mode=profile``
+on a host env (the JAX CLI asserts), the remote modes' flags outside them,
+and R2D2 on an env without discrete actions. The remote modes on a device env raise
+``NotImplementedError`` (the JAX CLI's actor asserts a host env; its
+learner takes a device env's specs).
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -99,9 +121,15 @@ Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=r2d2 --env=synthetic_atari_host \
       --num_envs=64 --unroll_length=80 --burn_in=40 --replay_ratio=0.75 \
       --pipeline_host_rollouts --logdir=/path/to/run --checkpoint_replay
+  python -m seed_rl_torch.train --run_mode=learner --agent=vtrace \
+      --env=synthetic_atari_host --num_envs=64 --server_address=/tmp/l.sock
+  python -m seed_rl_torch.train --run_mode=actor --agent=vtrace \
+      --env=synthetic_atari_host --num_envs=32 --env_id_offset=32 \
+      --server_address=/tmp/l.sock
 """
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -144,9 +172,17 @@ LAMBDA_DEFAULT = 0.95
 REPLAY_RATIO_DEFAULT = 0.75
 # Reseeds the envs' generator for --run_mode=eval (the JAX CLI's eval key).
 EVAL_SEED = 1234
+# The remote modes' flags: name -> default (outside the modes, the JAX CLI
+# ignores them).
+REMOTE_FLAGS = {"env_id_offset": 0, "num_actor_steps": 0,
+                "inference_batch_size": 0}
 # The JAX CLI's defaults of flags its SAC branch never reads.
 TRAIN_BATCHES_PER_STEP_DEFAULT = 1
 UPDATE_TARGET_EVERY_N_STEP_DEFAULT = 2500
+
+
+def default_server_address() -> str:
+    return os.path.join(tempfile.gettempdir(), "seed_rl_torch.sock")
 
 
 def parse_args(argv=None):
@@ -156,8 +192,21 @@ def parse_args(argv=None):
                    help="eval = restore from --logdir (or --init_checkpoint)"
                         " and evaluate the deterministic policy; profile = "
                         "trace --profile_calls calls with torch.profiler; "
-                        "actor and learner (the remote-actor runtime) are "
-                        "not ported yet")
+                        "learner = serve inference at --server_address and "
+                        "train on the unrolls actors stream; actor = step "
+                        "host envs against that server")
+    p.add_argument("--server_address", default=default_server_address(),
+                   help="actor and learner modes: a unix socket path (at "
+                        "most 107 bytes), or host:port / tcp://host:port")
+    p.add_argument("--env_id_offset", type=int, default=0,
+                   help="actor mode: the global id of this process's first "
+                        "env (the reference's task * env_batch_size)")
+    p.add_argument("--num_actor_steps", type=int, default=0,
+                   help="actor mode: stop after N env steps (0 = run until "
+                        "stopped)")
+    p.add_argument("--inference_batch_size", type=int, default=0,
+                   help="learner mode: the server's batch; 0 = the "
+                        "reference's auto-tune, max(1, num_envs / 2)")
     p.add_argument("--env", required=True, choices=ENVS,
                    help="synthetic_atari_host = Atari-shaped frames from "
                         "host-process envs (the host data path without "
@@ -304,8 +353,6 @@ def _refuse_unported(args):
         refuse(f"--agent={args.agent}")
     if args.env not in PORTED[args.agent]:
         refuse(f"--env={args.env} with --agent={args.agent}")
-    if args.run_mode in ("actor", "learner"):
-        refuse(f"--run_mode={args.run_mode} (the remote-actor runtime)")
     if args.agent_module:
         refuse("--agent_module (the free-composition hook)")
     if args.normalize_observations and (
@@ -313,6 +360,7 @@ def _refuse_unported(args):
         refuse(f"--normalize_observations with --agent={args.agent} "
                f"--env={args.env}")
     host = args.env in HOST_ENVS
+    _refuse_remote_flags(args, host)
     for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
         if getattr(args, flag) and (args.agent != "ppo" or host):
             raise ValueError(f"--{flag} is read by --agent=ppo on a device "
@@ -337,6 +385,24 @@ def _refuse_unported(args):
                          "keeps lambda 1 (the JAX CLI ignores the flag)")
     if args.agent == "sac":
         _refuse_sac_flags(args)
+
+
+def _refuse_remote_flags(args, host):
+    remote = args.run_mode in ("actor", "learner")
+    if remote and not host:
+        raise NotImplementedError(
+            f"--run_mode={args.run_mode} on the device env --env={args.env} "
+            "is not ported: the remote runtime serves host envs "
+            f"({', '.join(HOST_ENVS)}); the JAX CLI's actor asserts one, "
+            "its learner takes a device env's specs only")
+    if remote and args.pipeline_host_rollouts:
+        raise ValueError("--pipeline_host_rollouts is not read in the remote "
+                         "modes: the actors step the envs")
+    flags = dict(REMOTE_FLAGS, server_address=default_server_address())
+    for flag, default in flags.items():
+        if getattr(args, flag) != default and not remote:
+            raise ValueError(f"--{flag} is read by --run_mode=actor and "
+                             "learner only")
 
 
 def _refuse_host_flags(args, host):
@@ -441,10 +507,13 @@ def make_env(args, device):
 
 
 def main(argv=None):
-    """Trains, evaluates or profiles (``--run_mode``); returns (learner,
-    train state, metrics): the last call's metrics, eval's or profile's."""
+    """Trains, evaluates, profiles or serves actors (``--run_mode``);
+    returns (learner, train state, metrics): the last call's metrics,
+    eval's or profile's. An actor returns the env steps it ran."""
     args = parse_args(argv)
     _refuse_unported(args)
+    if args.run_mode == "actor":
+        return _run_actor(args)
     device = resolve_device(args.device)
     _refuse_replicas(args, device)
 
@@ -465,7 +534,14 @@ def _optimizer_updates(args, host):
     step (whose rollouts span the HER window), train_batches_per_step per
     R2D2 step, epochs_per_step x batches_per_step per PPO step, and on a
     host env the off-policy loop's owed batches, replay_ratio x training
-    envs / batch_size a cycle (at least one)."""
+    envs / batch_size a cycle (at least one); a remote learner's cycle
+    inserts an insertion batch."""
+    if args.run_mode == "learner" and args.agent in ("r2d2", "sac"):
+        insertion = _insertion_batch(args)
+        cycles = max(1, args.total_environment_frames
+                     // (insertion * args.unroll_length))
+        per_cycle = _replay_ratio(args) * insertion / args.batch_size
+        return int(cycles * max(1.0, per_cycle))
     unroll = args.unroll_length
     if args.agent == "sac" and args.her_window_length:
         unroll = args.her_window_length
@@ -487,6 +563,21 @@ def _replay_ratio(args):
     return (REPLAY_RATIO_DEFAULT if args.replay_ratio is None
             else args.replay_ratio)
 
+
+def _insertion_batch(args):
+    """Unrolls a remote off-policy learner inserts a cycle (the
+    reference's insertion_batch, r2d2 learner.py:113-117)."""
+    return max(1, int(round(args.batch_size / _replay_ratio(args))))
+
+
+def _run_actor(args):
+    """``--run_mode=actor``: steps host envs against the learner at
+    ``--server_address`` (``remote.actor_main``). Touches no CUDA device."""
+    from seed_rl_torch.remote import actor_main
+
+    return actor_main(lambda: make_env(args, None)[0], args.server_address,
+                      num_steps=args.num_actor_steps or None,
+                      env_id_offset=args.env_id_offset)
 
 def _run(args, env, host, device):
     from seed_rl_torch import optim
@@ -632,6 +723,59 @@ def _profile(args, learner):
     return learner, state, result
 
 
+def _remote_loop(args, agent, env, replay=None, num_training_envs=None):
+    """The remote learner's loop with the device loops' signature:
+    ``run_remote_learner`` without a replay (V-trace, PPO),
+    ``run_remote_offpolicy_learner`` with one (R2D2, SAC); the bridge acts
+    with the generator seed 1 of the CLI's rollout engines."""
+    from seed_rl_torch import remote
+    from seed_rl_torch.rollout import zero_action_for_space
+
+    obs_spec = env.observation_spec()
+    common = dict(
+        inference_batch_size=args.inference_batch_size,
+        config_push={"unroll_length": args.unroll_length,
+                     "num_envs": args.num_envs},
+        seed=1)
+
+    def loop(learner, total_environment_frames, logger=None, checkpoint=None,
+             log_every_steps=10, steps_per_call=1):
+        del steps_per_call  # one update or cycle at a time
+        if replay is None:
+            return remote.run_remote_learner(
+                agent, learner, obs_spec, args.server_address,
+                total_environment_frames, args.unroll_length, args.num_envs,
+                logger=logger, checkpoint=checkpoint,
+                log_every_steps=log_every_steps, **common)
+        replay_dir = (os.path.join(os.path.abspath(args.logdir), "replay")
+                      if args.checkpoint_replay else None)
+        return remote.run_remote_offpolicy_learner(
+            agent, learner, replay, obs_spec, args.server_address,
+            total_environment_frames, args.unroll_length, args.num_envs,
+            replay_ratio=_replay_ratio(args),
+            replay_buffer_min_size=args.replay_buffer_min_size,
+            example_action=zero_action_for_space(env.action_space).numpy(),
+            num_training_envs=num_training_envs,
+            num_overlapping_steps=args.burn_in if args.agent == "r2d2" else 0,
+            logger=logger, checkpoint=checkpoint,
+            log_every_cycles=log_every_steps, replay_dir=replay_dir,
+            **common)
+
+    return loop
+
+
+def _remote_engine(args, env, agent, device):
+    """A remote V-trace or PPO learner's engine: over a ``SpecHostEnv``
+    (specs only, never stepped), as the JAX CLI builds it."""
+    from seed_rl_torch.remote import SpecHostEnv
+    from seed_rl_torch.rollout_host import HostRolloutEngine
+
+    spec_env = SpecHostEnv(env.observation_spec(), env.action_space,
+                           args.num_envs)
+    return HostRolloutEngine(spec_env, agent, args.unroll_length,
+                             device=device, seed=1)
+
+
 def _engine(args, env, host, agent, device, overlap=0):
     """The rollout engine of the env's kind, seeded 1."""
     if host:
@@ -694,6 +838,11 @@ def _vtrace_learner(args, env, host, optimizer, device):
         discounting=args.discounting,
         entropy_cost=args.entropy_cost,
     )
+    if args.run_mode == "learner":
+        learner = vtrace_agent.VTraceLearner(
+            _remote_engine(args, env, agent, device), agent, config,
+            optimizer, seed=2)
+        return learner, _remote_loop(args, agent, env)
     engine = _engine(args, env, host, agent, device)
     learner = vtrace_agent.VTraceLearner(
         engine, agent, config, optimizer, seed=2
@@ -707,6 +856,7 @@ def _vtrace_learner(args, env, host, optimizer, device):
 def _r2d2_learner(args, env, host, optimizer, device):
     from seed_rl_torch.agents import r2d2
     from seed_rl_torch.models import DuelingLSTMDQNNet, VectorDuelingDQNNet
+    from seed_rl_torch.replay_host import HostReplayBuffer
 
     if not hasattr(env.action_space, "n"):
         raise ValueError(f"R2D2 needs discrete actions; --env={args.env} has "
@@ -743,6 +893,16 @@ def _r2d2_learner(args, env, host, optimizer, device):
         torch.full((args.num_eval_envs,), config.eval_epsilon, device=device),
     ])
     agent = r2d2.R2D2Agent(net, epsilons)
+    if args.run_mode == "learner":
+        # The remote loop keeps the eval envs' unrolls out by env id, so
+        # every unroll of an insertion batch is a training env's.
+        learner = r2d2.R2D2HostLearner(
+            agent, dataclasses.replace(config, num_eval_envs=0), optimizer,
+            _insertion_batch(args), args.unroll_length)
+        replay = HostReplayBuffer(args.replay_buffer_size,
+                                  config.importance_sampling_exponent,
+                                  device=device)
+        return learner, _remote_loop(args, agent, env, replay, num_training)
     engine = _engine(args, env, host, agent, device, overlap=args.burn_in)
     if host:
         learner = r2d2.R2D2HostLearner(agent, config, optimizer,
@@ -834,6 +994,10 @@ def _ppo_learner(args, env, host, optimizer, device):
                                        else "shuffle"),
         batches_per_step=args.batches_per_step,
     )
+    if args.run_mode == "learner":
+        learner = PPOLearner(_remote_engine(args, env, agent, device), agent,
+                             loss, config, optimizer, seed=2)
+        return learner, _remote_loop(args, agent, env)
     engine = _engine(args, env, host, agent, device)
     learner = PPOLearner(engine, agent, loss, config, optimizer, seed=2)
     if host:
@@ -891,6 +1055,14 @@ def _sac_learner(args, env, host, optimizer, device):
         her_window_length=her_window,
         polyak=args.polyak,
     )
+    if args.run_mode == "learner":
+        from seed_rl_torch.replay_host import HostReplayBuffer
+
+        learner = sac.SACHostLearner(agent, config, optimizer,
+                                     _insertion_batch(args),
+                                     args.unroll_length, seed=2)
+        replay = HostReplayBuffer(args.replay_buffer_size, 0.0, device=device)
+        return learner, _remote_loop(args, agent, env, replay)
     if host:
         engine = _engine(args, env, host, agent, device)
         learner = sac.SACHostLearner(agent, config, optimizer, args.num_envs,

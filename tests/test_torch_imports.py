@@ -2,16 +2,26 @@
 
 The import check is a static scan of the source, because the process that
 runs the tests may import JAX before any test starts (tests/conftest.py),
-so ``sys.modules`` cannot tell who imported what.
+so ``sys.modules`` cannot tell who imported what. A second scan finds no
+string in the code (docstrings aside) that names a path inside
+``seed_rl_tpu/``: the port builds its own copy of the batcher
+(``csrc/batcher.cc``) into the git-ignored ``build/``; only the kernels
+line's ``file:line`` references to the TPU kernels it replaces name one.
 
 The packages of the real environments (gymnasium, cv2, ALE, DeepMind Lab,
 gfootball, MuJoCo) are not on the card's machine: the port imports them
 only inside the adapter functions that build such an env, and a process
-without gymnasium and cv2 runs the host data path end to end.
+without gymnasium and cv2 runs the host data path end to end. An actor
+process (``--run_mode=actor``) runs with JAX, seed_rl_tpu, gymnasium and
+cv2 all blocked, and ends with CUDA not initialised.
 """
 
 import ast
+import json
+import os
 import pathlib
+import re
+import signal
 import subprocess
 import sys
 import textwrap
@@ -20,6 +30,7 @@ import pytest
 import torch
 
 from seed_rl_torch import train
+from seed_rl_torch.runtime.transport import unique_socket_path
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorboardX",
@@ -183,3 +194,95 @@ def test_train_main_needs_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device=cpu"):
         train.main(["--agent=vtrace", "--env=toy"])
+
+
+# A file:line reference to the TPU kernel a kernel replaces (the kernels
+# line's "replaces" key), not a path the code opens.
+KERNEL_REFERENCE = re.compile(r"seed_rl_tpu/[\w/]+\.py:\d+")
+
+
+def _code_strings(path):
+    """(line, value) of every string constant in ``path`` that is not a
+    docstring."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docstrings.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            yield node.lineno, node.value
+
+
+def _names_a_jax_package_path(value):
+    return (value == "seed_rl_tpu" or "seed_rl_tpu/" in value) and (
+        not KERNEL_REFERENCE.fullmatch(value))
+
+
+def test_no_code_names_a_path_inside_the_jax_package():
+    offenders = [f"{path.relative_to(ROOT)}:{line} {value!r}"
+                 for path in _port_sources()
+                 for line, value in _code_strings(path)
+                 if _names_a_jax_package_path(value)]
+    assert not offenders, offenders
+    from seed_rl_torch.runtime import inference_server
+
+    assert inference_server.SOURCE == (
+        ROOT / "seed_rl_torch" / "csrc" / "batcher.cc")
+    assert inference_server.BUILD_DIR == ROOT / "build" / "batcher"
+    assert "/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_path_scan_catches_a_path_into_the_jax_package(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text(textwrap.dedent('''\
+        """Port of ``seed_rl_tpu/runtime/batcher.cc``."""
+        SRC = "seed_rl_tpu/runtime/batcher.cc"
+        PARTS = ("seed_rl_tpu", "runtime")
+        REPLACES = "seed_rl_tpu/ops/pallas/nstep_kernel.py:36"
+    '''))
+    flagged = [value for _, value in _code_strings(bad)
+               if _names_a_jax_package_path(value)]
+    assert flagged == ["seed_rl_tpu/runtime/batcher.cc", "seed_rl_tpu"]
+
+
+ACTOR = textwrap.dedent("""\
+    import runpy, sys
+    for name in ("jax", "jaxlib", "seed_rl_tpu", "gymnasium", "cv2"):
+        sys.modules[name] = None  # importing any of them fails
+    sys.argv = ["seed_rl_torch.train"] + sys.argv[1:]
+    runpy.run_module("seed_rl_torch.train", run_name="__main__")
+""")
+
+
+def test_actor_process_runs_without_jax_gymnasium_cv2_and_cuda():
+    """An actor process steps synthetic_atari_host against a learner in
+    this process with JAX, seed_rl_tpu, gymnasium and cv2 blocked; stopped
+    by SIGTERM, it reports its steps and that CUDA was never initialised."""
+    path = unique_socket_path("srt")
+    flags = ["--agent=vtrace", "--env=synthetic_atari_host",
+             f"--server_address={path}", "--unroll_length=4"]
+    actor = subprocess.Popen(
+        [sys.executable, "-c", ACTOR, "--run_mode=actor", "--num_envs=2",
+         *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        _, state, _ = train.main(["--run_mode=learner", "--device=cpu",
+                                  "--num_envs=2",
+                                  "--total_environment_frames=16", *flags])
+    finally:
+        # The learner needed the actor's unrolls: it has started and stops
+        # cleanly on SIGTERM.
+        if actor.poll() is None:
+            actor.send_signal(signal.SIGTERM)
+        out, err = actor.communicate(timeout=60)
+    assert state.step == 2
+    assert actor.returncode == 0, err
+    final = json.loads(out.splitlines()[-1])["actor"]
+    assert final["steps"] >= 8
+    assert final["cuda_initialized"] is False
