@@ -120,14 +120,14 @@ Phases, in order; any failure exits non-zero:
      (a) R2D2 at phase 6's knobs with DuelingLSTMDQNNet (LSTM 512), the
          replay in host RAM (phase 9's 10k unrolls, or the largest multiple
          of 1000 that fits a quarter of MemAvailable), --replay_ratio=0.75:
-         3 cycles, the first only filling the replay, plain and then with
+         2 cycles, the first only filling the replay, plain and then with
          --pipeline_host_rollouts; the batches of each cycle must be the
          owed formula's, B2 launched once per insert and per batch, the
          written-back priorities finite, the learner on the card, and B2
          equal to its plain version on a batch of the run's own replay;
-     (b) V-trace with AtariPolicyNet at phase 7's shape, 3 steps plain (one
+     (b) V-trace with AtariPolicyNet at phase 7's shape, 2 steps plain (one
          B1 launch each, B1 against its plain version on the run's last
-         unroll) and 3 pipelined (4 launches: the last unroll is trained
+         unroll) and 2 pipelined (3 launches: the last unroll is trained
          on), then --run_mode=eval on 32 host envs from the plain run's
          parameters, twice: the two results must be equal;
      (c) PPO with AtariPolicyNet at phase 11's knobs, 2 steps;
@@ -173,15 +173,37 @@ Phases, in order; any failure exits non-zero:
      trained (less (b)'s hold of the inserts), the device idle share over one profiled update or cycle,
      peak device memory and RSS, and the actors' inference and env-step
      timings;
- 17. print the V-trace and n-step launches of each path, and the kernels
+ 17. data-parallel scale-out, each path through seed_rl_torch.train.main,
+     first on one rank (no process group), then on two ranks that share
+     cuda:0 over gloo (NCCL refuses two ranks on one device; gloo is named,
+     not fallen back to), from the same seed, TF32 off in both:
+     (a) V-trace on synthetic Atari frames with AtariPolicyNet, 1024 envs x
+         unroll 32 (512 a rank), 2 steps;
+     (b) R2D2 on discrete_match at phase 6's knobs (640 envs with 30 eval:
+         rank 1 holds 290 training and 30 eval envs; a 10k-unroll replay,
+         5k slots a rank), 2 warm-ups and 2 steps;
+     (c) PPO on the toy env at phase 10's knobs, 1 step;
+     (d) SAC on catch_continuous at phase 12's knobs, 2 steps.
+     Each must match the one-rank run (the parameters within 2e-3 of their
+     movement, every metric within rtol 1e-4 / atol 1e-5), hold its
+     replicated tensors bitwise equal on both ranks, and, on (a) and (b),
+     launch B1 or B2 on every rank and match the plain version on the
+     rank's own unroll, insert and share of a batch within 1e-5. Each rank
+     prints its envs and replay slots, its step ms, gradient all-reduce ms,
+     idle share and peak memory; (b) also a checkpoint, gathered to rank
+     0's CPU, and the device memory the gather took. (e) V-trace on the toy
+     env at phase 5's shape in a one-rank NCCL group: its all-reduce calls
+     and NCCL's kernel of the gradient average must appear in the profile
+     of a step;
+ 18. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phases 14's, 15's and 16's, the
-     n-step kernel's those of both R2D2 paths and of phases 14's, 15's
-     and 16's.
+     those of all three V-trace paths and of phases 14's to 17's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's to 17's,
+     with phase 17's shapes on the ranks under "scale_out_shapes".
      The PPO and SAC paths launch neither kernel: the PPO advantage
      estimators are plain PyTorch and SAC has no recursion over time, as
      in the JAX package.
@@ -349,7 +371,7 @@ PPO_PATHS = {
         "AtariPolicyNet, 4 stacked 84x84 frames, LSTM 256, 18 actions"),
 }
 # Train steps inside train.main, and timed afterwards, on both PPO paths.
-PPO_STEPS, PPO_TIMED_STEPS = 2, 2
+PPO_STEPS, PPO_TIMED_STEPS = 2, 1
 
 
 class SACPath(NamedTuple):
@@ -1497,7 +1519,7 @@ def run_checkpoint_paths(smi):
 # to the largest multiple of 1000 that fits a quarter of MemAvailable.
 # A call runs HOST_R2D2_CYCLES cycles: the minimum size is one cycle's
 # items + 1, so the first cycle only fills the replay.
-HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 3, 2, 64
+HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 2, 2, 64
 HOST_R2D2_TRAINING = R2D2_ENVS - R2D2_EVAL_ENVS
 HOST_R2D2_MIN = HOST_R2D2_TRAINING + 1
 HOST_REPLAY_RATIO = 0.75  # the JAX CLI's default
@@ -1508,10 +1530,10 @@ HOST_REPLAY_UNROLLS = 10_000
 # 512's (c, h).
 HOST_REPLAY_ITEM_BYTES = (121 * (84 * 84 + 4 + 4 + 1 + 1 + 4 + 4 + 18 * 4)
                           + 84 * 84 * 3 + 2 * 512 * 4)
-# V-trace at phase 7's shape, 3 steps plain and 3 pipelined, then a
+# V-trace at phase 7's shape, 2 steps plain and 2 pipelined, then a
 # deterministic eval of HOST_EVAL_EPISODES 1000-step episodes on
 # HOST_EVAL_ENVS envs, twice.
-HOST_VTRACE_ENVS, HOST_VTRACE_UNROLL, HOST_VTRACE_STEPS = 1024, 32, 3
+HOST_VTRACE_ENVS, HOST_VTRACE_UNROLL, HOST_VTRACE_STEPS = 1024, 32, 2
 HOST_EVAL_ENVS = HOST_EVAL_EPISODES = 32
 # SAC on the script's own host env: envs, unroll, batch, replay ratio (the
 # reference SAC's), cycles.
@@ -2815,6 +2837,564 @@ def run_remote_paths(smi, device):
     return vtrace, nstep, vtrace_err, nstep_err
 
 
+# Phase 17: data-parallel scale-out. The script needs one card, and NCCL
+# refuses two ranks on one device, so (a)-(d) run two ranks on cuda:0 over
+# gloo (named, not a fallback): the tensors stay on the card and gloo
+# moves them through the host. Each path runs once on one rank (no group)
+# and once on two, from the same seed, with TF32 off in both; (e) wraps a
+# learner in a one-rank NCCL group, whose all-reduce calls its profile
+# shows.
+SCALE_OUT_RANKS = 2
+
+
+class ScaleOutPath(NamedTuple):
+    argv: Tuple[str, ...]
+    agent: str
+    steps: int  # train steps inside train.main
+    net: str  # as printed
+
+
+def _scale_out_paths():
+    atari = VTRACE_PATHS["synthetic_atari"]
+    ppo = PPO_PATHS["ppo_toy"]
+    sac_path = SAC_PATHS["sac_catch_continuous"]
+    r2d2_steps, vtrace_steps, ppo_steps, sac_steps = 2, 2, 1, 2
+    return {
+        "vtrace synthetic_atari": ScaleOutPath((
+            "--agent=vtrace", *atari.flags, f"--num_envs={atari.envs}",
+            f"--unroll_length={atari.unroll}",
+            "--total_environment_frames="
+            f"{vtrace_steps * atari.envs * atari.unroll}",
+            "--steps_per_call=1", "--log_every_steps=1"), "vtrace",
+            vtrace_steps, atari.net),
+        "r2d2 discrete_match": ScaleOutPath((
+            *_r2d2_argv("discrete_match"),
+            "--total_environment_frames="
+            f"{r2d2_steps * R2D2_ENVS * R2D2_UNROLL}"), "r2d2", r2d2_steps,
+            R2D2_PATHS["discrete_match"]),
+        "ppo toy": ScaleOutPath((
+            "--agent=ppo", *ppo.flags, f"--num_envs={ppo.envs}",
+            f"--unroll_length={ppo.unroll}",
+            f"--epochs_per_step={ppo.epochs}",
+            f"--batches_per_step={ppo.minibatches}",
+            f"--total_environment_frames={ppo_steps * ppo.envs * ppo.unroll}",
+            "--steps_per_call=1", "--log_every_steps=1"), "ppo", ppo_steps,
+            ppo.net),
+        "sac catch_continuous": ScaleOutPath((
+            "--agent=sac", *sac_path.flags, f"--num_envs={sac_path.envs}",
+            "--total_environment_frames="
+            f"{sac_steps * sac_path.envs * sac_path.rollout}",
+            "--steps_per_call=1", "--log_every_steps=1"), "sac", sac_steps,
+            sac_path.net),
+    }
+
+
+# Two ranks against one: the metrics of the last call within rtol 1e-4 /
+# atol 1e-5, as on the CPU, and the parameters within 2e-3 of their own
+# movement from the initial values (global norms). Both runs start from
+# the same parameters and draw the same noise, but a rank's convolutions
+# and matrix products run at half the batch, in other algorithms and sum
+# orders (f32, TF32 off); Adam's first steps turn those ~1e-7 relative
+# gradient differences into parameter differences of up to 1.4e-4 of the
+# movement (V-trace on synthetic Atari, the largest of six H100 runs).
+SCALE_OUT_METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
+SCALE_OUT_PARAM_TOL = 2e-3
+SCALE_OUT_TIMED_STEPS = 1
+
+
+def _tf32(enabled):
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+
+
+def _replicated(learner, state):
+    """A rank's replicated tensors, by name: the parameters, the optimizer
+    moments, the target net, the statistics, the priorities and the
+    generators."""
+    inner = getattr(learner, "learner", learner)
+    named = {f"param {i}": p for i, p in enumerate(inner.parameters())}
+    opt = inner.optimizer.state_dict()
+    named.update({f"opt {k} {i}": t for k in ("exp_avg", "exp_avg_sq")
+                  for i, t in enumerate(opt[k])})
+    target = getattr(inner, "target_net", None) or getattr(
+        getattr(inner, "target_agent", None), "net", None)
+    if target is not None:
+        named.update({f"target {i}": p
+                      for i, p in enumerate(target.parameters())})
+    stats = getattr(inner.agent, "obs_norm", None) or ()
+    named.update({f"obs_norm {i}": t
+                  for i, t in enumerate(pytree.tree_leaves(stats))})
+    named.update({f"norm_state {i}": t for i, t in enumerate(
+        pytree.tree_leaves(getattr(state, "norm_state", ())))})
+    if hasattr(state, "replay"):
+        named["priorities"] = state.replay.priorities
+    engine = inner.engine
+    named.update({f"generator {i}": g.get_state() for i, g in enumerate(
+        (engine.env.generator, engine.generator, inner.generator))})
+    return named
+
+
+def _digests(named):
+    import hashlib
+
+    return {k: hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, t in named.items()}
+
+
+def _scale_out_kernels(name, learner, state):
+    """On two ranks: B1 on the rank's own unroll, B2 on its own insert and
+    on its share of a sampled batch, each against its plain version;
+    returns {kernel: (max |err|, shapes)}."""
+    from seed_rl_torch.agents import r2d2
+    from seed_rl_torch.agents import vtrace as vtrace_agent
+    from seed_rl_torch.ops import vtrace as plain
+    from seed_rl_torch.ops.cuda import vtrace_kernel
+
+    inner = learner.learner
+    out = {}
+    if isinstance(inner, vtrace_agent.VTraceLearner):
+        _, unroll = inner.engine.rollout(state.rollout)
+        with torch.no_grad():
+            inputs, _ = vtrace_agent.vtrace_inputs(
+                inner.config, inner.agent, inner.agent.distribution, unroll)
+        got = vtrace_kernel.from_importance_weights(
+            **inputs, lambda_=inner.config.lambda_)
+        want = plain.from_importance_weights(
+            **inputs, lambda_=inner.config.lambda_)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=VTRACE_TOL, atol=VTRACE_TOL)
+            err = max(err, float((g - w).abs().max()))
+        out["vtrace"] = (err, [list(inputs["rewards"].shape)])
+    if isinstance(inner, r2d2.R2D2Learner):
+        config = inner.config
+        _, unroll = inner.engine.rollout(state.rollout)
+        items = r2d2.unroll_to_items(unroll, inner.num_training_envs)
+        (rewards, done), (action, q) = pytree.tree_map(
+            lambda t: t[config.burn_in:], r2d2._time_major((
+                (items.env_outputs.reward, items.env_outputs.done),
+                (items.agent_outputs.action, items.agent_outputs.q_values))))
+        args = [q, q, action, action, rewards, done]
+        kw = dict(gamma=config.discounting, n_steps=config.n_steps,
+                  rescaling_eps=config.value_function_rescaling_epsilon)
+        insert_err, _, _ = _nstep_compare(
+            args, args, kw, f"{name} on this rank's insert "
+            f"{list(q.shape[:2])}")
+        # Every rank draws the same indices and gathers the global batch.
+        _, _, batch = inner.replay.sample(
+            state.replay, inner.generator, config.batch_size,
+            config.priority_exponent)
+        part = learner.mesh.shard(config.batch_size)
+        batch = pytree.tree_map(lambda t: t[part], batch)
+        batch_err = check_nstep_on_batch(name, inner, batch)
+        out["nstep"] = (max(insert_err, batch_err),
+                        [list(q.shape[:2]),
+                         [q.shape[0], part.stop - part.start]])
+    return out
+
+
+# PPO's step on two ranks launches ~174k device events, which the profiler
+# takes ~50 s to sum: its idle share is taken over the step's rollout and
+# its first epoch of minibatch steps.
+SCALE_OUT_PPO_WINDOW = PPO_PATHS["ppo_toy"].minibatches
+
+
+class _Window:
+    """Calls ``at_end`` once, right after the ``window``-th PPO minibatch
+    step of the learner inside the block (never without a window)."""
+
+    def __init__(self, learner, window, at_end):
+        self.inner, self.window, self.at_end = learner.learner, window, at_end
+
+    def __enter__(self):
+        if self.window:
+            step, calls = self.inner._minibatch_step, [0]
+
+            def counted(*args, **kwargs):
+                out = step(*args, **kwargs)
+                calls[0] += 1
+                if calls[0] == self.window:
+                    torch.cuda.synchronize()
+                    self.at_end()
+                return out
+
+            self.inner._minibatch_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        if self.window:
+            del self.inner._minibatch_step
+
+
+def _timed_scale_out_steps(learner, state, steps, window=None):
+    """``steps`` train steps of a DistributedLearner, synchronised; returns
+    (state, s per step, gradient all-reduce s per step, all-reduces per
+    step, s from the first step's start to the end of its ``window``-th
+    minibatch step, or None)."""
+    mesh = learner.mesh
+    spent, ends = [], []
+    average = mesh.average_
+
+    def timed(tensors):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        average(tensors)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+
+    mesh.average_ = timed
+    try:
+        with _Window(learner, window, lambda: ends.append(
+                time.perf_counter())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = learner.train_step(state)
+            torch.cuda.synchronize()
+    finally:
+        del mesh.average_
+    step_s = (time.perf_counter() - t0) / steps
+    window_s = ends[0] - t0 if ends else None
+    return state, step_s, sum(spent) / steps, len(spent) / steps, window_s
+
+
+def _scale_out_idle(learner, state, what, wall_s, window=None):
+    """This rank's device idle share: the device busy time of one train
+    step (torch.profiler, device activity only), or with ``window`` of the
+    step up to the end of its ``window``-th PPO minibatch step, against
+    ``wall_s``, the unprofiled time of the same span; None where the
+    profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    stopped = []
+
+    def stop():
+        stopped.append(True)
+        prof.stop()
+
+    prof.start()
+    with _Window(learner, window, stop):
+        learner.train_step(state)
+        torch.cuda.synchronize()
+    if not stopped:
+        prof.stop()
+    kernels = _device_kernels(prof)
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    span = (f"the step's first {window} minibatch steps" if window
+            else "one step")
+    if not busy_s:
+        print(f"{what}: no device time recorded; idle share not measured")
+        return None
+    idle = 1 - busy_s / wall_s
+    print(f"{what}: device busy {busy_s * 1e3:.3f} ms over "
+          f"{sum(e.count for e in kernels):.0f} kernel launches in "
+          f"{span} ({wall_s * 1e3:.3f} ms unprofiled); idle share "
+          f"{idle:.3f}")
+    return idle
+
+
+def _scale_out_checkpoint(learner, state):
+    """A two-rank checkpoint of (b): rank 0 gathers the global tree to its
+    CPU one leaf at a time; returns the device memory it took above the
+    resident state, the global replay's size and the gathered buffer's
+    slots (GB, GB, slots). Resets the peak memory statistic."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tree = learner.checkpoint_state(state)
+    torch.cuda.synchronize()
+    extra_gb = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    buffer = pytree.tree_leaves(tree["replay"].buffer)
+    replay_gb = sum(t.numel() * t.element_size() for t in buffer) / 2**30
+    where = {t.device.type for t in buffer}
+    want = "cpu" if learner.mesh.rank == 0 else "meta"
+    if where != {want}:
+        raise RuntimeError(f"checkpoint rank {learner.mesh.rank}: the "
+                           f"gathered replay lies on {where}, want {want}")
+    print(f"scale-out checkpoint rank {learner.mesh.rank}: the global "
+          f"replay of {buffer[0].shape[0]} unrolls is {replay_gb:.3f} GB "
+          f"({want}); the gather took {extra_gb:.4f} GB of device memory "
+          "above the resident state")
+    return extra_gb, replay_gb, buffer[0].shape[0]
+
+
+def scale_out_rank(mesh, smi, paths):
+    """Phase 17 (a)-(d) on one rank of the gloo group: each path through
+    train.main on this rank's share, the launch counts reset just before;
+    returns per path the launches, the kernels' errors and shapes, the
+    replicated tensors' digests, step and all-reduce ms, idle share, peak
+    GB, the metrics (and, on rank 0, the parameters)."""
+    from seed_rl_torch import train
+
+    _tf32(False)
+    out = {}
+    for name, path in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        start = time.perf_counter()
+        learner, state, metrics = train.main(
+            [*path.argv, f"--num_replicas={mesh.size}"], mesh=mesh)
+        torch.cuda.synchronize()
+        launches = _launches()
+        wall_s = time.perf_counter() - start
+        _finite(f"{name} rank {mesh.rank}", metrics)
+        inner = learner.learner
+        tensors = list(inner.parameters()) + inner.state_tensors(state)
+        if any(t.device != mesh.device for t in tensors):
+            raise RuntimeError(f"{name} rank {mesh.rank}: tensors off "
+                               f"{mesh.device}")
+        result = dict(
+            launches=launches, steps=state.step, wall_s=wall_s,
+            metrics={k: float(v) for k, v in metrics.items()},
+            digests=_digests(_replicated(learner, state)),
+            num_envs=inner.engine.env.num_envs,
+            slots=(pytree.tree_leaves(state.replay.buffer)[0].shape[0]
+                   if hasattr(state, "replay") else None),
+            kernels=_scale_out_kernels(name, learner, state))
+        if mesh.rank == 0:
+            result["params"] = [p.detach().cpu().clone()
+                                for p in inner.parameters()]
+        window = SCALE_OUT_PPO_WINDOW if path.agent == "ppo" else None
+        state, step_s, reduce_s, reduces, window_s = _timed_scale_out_steps(
+            learner, state, SCALE_OUT_TIMED_STEPS, window)
+        result.update(step_ms=step_s * 1e3, allreduce_ms=reduce_s * 1e3,
+                      allreduces=reduces)
+        result["idle"] = _scale_out_idle(
+            learner, state, f"scale-out {name} rank {mesh.rank}",
+            window_s if window else step_s, window)
+        result["peak_gb"] = _peak_memory_gb()
+        if path.agent == "r2d2":
+            result["checkpoint"] = _scale_out_checkpoint(learner, state)
+        print(f"scale-out {name} rank {mesh.rank}: {state.step} steps; "
+              f"{result['num_envs']} envs"
+              + (f", {result['slots']} replay slots" if result["slots"]
+                 else "")
+              + f"; step {result['step_ms']:.3f} ms, gradient all-reduce "
+              f"{result['allreduce_ms']:.3f} ms ({reduces:.0f} a step), idle "
+              f"share {result['idle']}, peak {result['peak_gb']:.3f} GB; "
+              f"launches {launches} ({smi})", flush=True)
+        out[name] = result
+    return out
+
+
+def _one_rank_reference(name, path):
+    """A path on one rank (no group), TF32 off; returns (initial
+    parameters, final parameters, metrics, launches)."""
+    from seed_rl_torch import optim, train
+
+    initial = []
+    init = optim.ClippedAdam.__init__
+
+    def snapshot(self, params, *args, **kwargs):
+        params = list(params)
+        initial[:] = [p.detach().cpu().clone() for p in params]
+        init(self, params, *args, **kwargs)
+
+    _reset_launch_counts()
+    optim.ClippedAdam.__init__ = snapshot
+    try:
+        learner, state, metrics = train.main([*path.argv, "--num_replicas=1"])
+        torch.cuda.synchronize()
+    finally:
+        optim.ClippedAdam.__init__ = init
+    if state.step != path.steps:
+        raise RuntimeError(f"{name}: one rank trained {state.step} steps, "
+                           f"want {path.steps}")
+    return (initial, [p.detach().cpu().clone()
+                      for p in learner.parameters()],
+            {k: float(v) for k, v in metrics.items()}, _launches())
+
+
+def _check_scale_out(name, path, reference, ranks):
+    initial, want, want_metrics, _ = reference
+    got = ranks[0]["params"]
+    diff = math.sqrt(sum(float((g - w).double().square().sum())
+                         for g, w in zip(got, want)))
+    moved = math.sqrt(sum(float((w - i).double().square().sum())
+                          for w, i in zip(want, initial)))
+    ratio = diff / moved
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"scale-out {name}: 2 ranks vs 1, parameters |p2 - p1| / |p1 - "
+          f"p0| = {ratio:.3e} (tol {SCALE_OUT_PARAM_TOL}), max|p2 - p1| = "
+          f"{worst:.3e}")
+    if not ratio <= SCALE_OUT_PARAM_TOL:
+        raise RuntimeError(f"{name}: two ranks' parameters differ from one "
+                           f"rank's by {ratio:.3e} of their movement")
+    metrics = ranks[0]["metrics"]
+    if set(metrics) != set(want_metrics):
+        raise RuntimeError(f"{name}: metrics {sorted(metrics)} vs "
+                           f"{sorted(want_metrics)}")
+    # |two - one| against atol + rtol * |one|, per metric; the worst.
+    share, worst_key = max(
+        (abs(metrics[k] - v) / (SCALE_OUT_METRIC_TOL["atol"]
+                                + SCALE_OUT_METRIC_TOL["rtol"] * abs(v)), k)
+        for k, v in want_metrics.items())
+    print(f"scale-out {name}: metrics against {SCALE_OUT_METRIC_TOL}: "
+          f"worst {worst_key} at {share:.3e} of its tolerance (two ranks "
+          f"{metrics[worst_key]!r}, one {want_metrics[worst_key]!r})")
+    if not share <= 1:
+        raise RuntimeError(f"{name}: metric {worst_key} "
+                           f"{metrics[worst_key]} on two ranks, "
+                           f"{want_metrics[worst_key]} on one")
+    digests = [r["digests"] for r in ranks]
+    unequal = [k for k in digests[0] if digests[0][k] != digests[1][k]]
+    if unequal or set(digests[0]) != set(digests[1]):
+        raise RuntimeError(f"{name}: replicated tensors differ across "
+                           f"ranks: {unequal}")
+    print(f"scale-out {name}: {len(digests[0])} replicated tensors bitwise "
+          "equal on both ranks (sha256)")
+    total = {"vtrace": 0, "nstep": 0}
+    for rank, r in enumerate(ranks):
+        if r["steps"] != path.steps:
+            raise RuntimeError(f"{name} rank {rank}: {r['steps']} steps")
+        for kernel, (err, shapes) in r["kernels"].items():
+            if r["launches"][kernel] == 0:
+                raise RuntimeError(f"{name} rank {rank}: {kernel} never "
+                                   "launched")
+            print(f"scale-out {name} rank {rank}: {kernel} launched "
+                  f"{r['launches'][kernel]} times; on this rank's data "
+                  f"{shapes} max|kernel - plain| = {err:.3e} (tol 1e-5)")
+        for kernel in total:
+            total[kernel] += r["launches"][kernel]
+    return total
+
+
+def run_nccl_one_rank(smi):
+    """Phase 17 (e): V-trace on the toy env (phase 5's shape) in a one-rank
+    NCCL group: the loss's means, the gradient average and the episode
+    window go through NCCL's all-reduce, whose calls the profile of a step
+    must show, and the gradient average (NCCL's own average, a scaled sum)
+    a device kernel of NCCL's (one rank's in-place sums launch none: they
+    are already done; ``scripts/torch_nccl_one_card.py``); returns the
+    path's V-trace launches."""
+    import torch.distributed as dist
+
+    from seed_rl_torch import parallel, train
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = VTRACE_PATHS["toy"]
+    steps = 2
+    argv = ["--agent=vtrace", *path.flags, f"--num_envs={path.envs}",
+            f"--unroll_length={path.unroll}",
+            f"--total_environment_frames={steps * path.envs * path.unroll}",
+            "--steps_per_call=1", "--log_every_steps=1", "--num_replicas=1"]
+    start = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{parallel.mesh.free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1)
+        _reset_launch_counts()
+        learner, state, metrics = train.main(argv, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = _launches()["vtrace"]
+        _finite("nccl one rank", metrics)
+        if launches != steps or dist.get_backend() != "nccl":
+            raise RuntimeError(f"nccl one rank: {launches} V-trace launches "
+                               f"on {dist.get_backend()}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            learner.train_step(state)
+            torch.cuda.synchronize()
+        nccl = [e for e in prof.key_averages()
+                if "nccl" in e.key.lower() or "onerank" in e.key.lower()]
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    calls = sum(e.count for e in nccl if e.key == "nccl:all_reduce")
+    on_card = sum(e.count for e in nccl
+                  if e.device_type == DeviceType.CUDA)
+    if not calls or not on_card:
+        raise RuntimeError(f"nccl one rank: {calls} NCCL all-reduce calls "
+                           f"and {on_card} NCCL kernels in the profile of a "
+                           "step")
+    for e in nccl:
+        key = e.key if len(e.key) <= 90 else "..." + e.key[-87:]
+        print(f"nccl one rank: {e.count:.0f}x {key} ({e.device_type}),"
+              f" host {e.cpu_time_total / 1e3:.3f} ms, device "
+              f"{e.device_time_total / 1e3:.3f} ms a step")
+    print(f"nccl one rank: {mesh} over {backend}, {steps} steps, "
+          f"{launches} V-trace launches, losses/total="
+          f"{float(metrics['losses/total']):.6f}; the path took "
+          f"{time.perf_counter() - start:.1f} s ({smi})")
+    return launches
+
+
+def time_global_draws(smi, device):
+    """What drawing at the global shape costs a rank of (a): a step of 512
+    of 1024 synthetic-Atari envs draws the envs' reset seeds (int32) and
+    the Gumbel noise of its actions (f32, 18 actions); each rank draws all
+    1024 rows and keeps its 512, where a draw of its own would make 512.
+    CUDA events, 200 draws each."""
+    from seed_rl_torch.parallel import draws
+
+    envs, actions = VTRACE_PATHS["synthetic_atari"].envs, 18
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    half = draws.ShardedGenerator(g, envs, slice(0, envs // 2))
+
+    def step_draws(generator):
+        draws.randint(0, 255, (envs // 2,), generator, device=device,
+                      dtype=torch.int32)
+        draws.rand((envs // 2, actions), generator, device=device)
+
+    global_ms = _cuda_ms(lambda: step_draws(half), 200)
+    local_ms = _cuda_ms(lambda: step_draws(g), 200)
+    print(f"scale-out draws: a rank's step of synthetic Atari draws takes "
+          f"{global_ms:.6f} ms at the global shape ({envs} rows, its "
+          f"{envs // 2} kept) against {local_ms:.6f} ms for its own rows "
+          f"alone ({smi})")
+
+
+def run_scale_out(smi, device):
+    """Phase 17 (the ranks of (a)-(d) on ``device``); returns (B1
+    launches, B2 launches, B1 max err, B2 max err, the kernels' shapes on
+    the ranks)."""
+    from seed_rl_torch import parallel
+
+    paths = _scale_out_paths()
+    if device.type == "cuda":
+        time_global_draws(smi, device)
+    _tf32(False)
+    try:
+        references = {}
+        for name, path in paths.items():
+            t0 = time.perf_counter()
+            references[name] = _one_rank_reference(name, path)
+            print(f"scale-out {name}: one rank, {path.steps} steps in "
+                  f"{time.perf_counter() - t0:.1f} s ({path.net})",
+                  flush=True)
+        t0 = time.perf_counter()
+        ranks = parallel.spawn(
+            scale_out_rank, SCALE_OUT_RANKS, device, backend="gloo",
+            devices=[device] * SCALE_OUT_RANKS, args=(smi, paths),
+            timeout_secs=600)
+        print(f"scale-out: {SCALE_OUT_RANKS} ranks on {device} over gloo ran "
+              f"{len(paths)} paths in {time.perf_counter() - t0:.1f} s")
+    finally:
+        _tf32(True)
+    launches = {"vtrace": 0, "nstep": 0}
+    errs = {"vtrace": 0.0, "nstep": 0.0}
+    shapes = {"vtrace": [], "nstep": []}
+    for name, path in paths.items():
+        per_rank = [r[name] for r in ranks]
+        total = _check_scale_out(name, path, references[name], per_rank)
+        for kernel in launches:
+            launches[kernel] += total[kernel]
+        for r in per_rank:
+            for kernel, (err, kernel_shapes) in r["kernels"].items():
+                errs[kernel] = max(errs[kernel], err)
+                shapes[kernel].extend(kernel_shapes)
+    if device.type == "cuda":
+        launches["vtrace"] += run_nccl_one_rank(smi)
+    return launches["vtrace"], launches["nstep"], errs["vtrace"], \
+        errs["nstep"], shapes
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -2865,7 +3445,8 @@ def _device_kernels(prof):
 
 def profile_device_time(learner, state, step_s, what):
     """Device busy time of one train step from torch.profiler, and the idle
-    share against the unprofiled step time. Only the device activity is
+    share against the unprofiled step time (returned; None where the
+    profiler recorded no device time). Only the device activity is
     traced: with the host's operators too, summing the PPO toy step's
     events took 95 s of the script's 212 s on an H100."""
     from torch.profiler import ProfilerActivity, profile
@@ -2881,15 +3462,17 @@ def profile_device_time(learner, state, step_s, what):
     if busy_us == 0:
         print(f"{what} profiler: no device time recorded; device busy share "
               "not measured")
-        return
+        return None
+    idle = 1 - busy_us / 1e6 / step_s
     print(f"{what} profiler: device busy {busy_us / 1e3:.3f} ms per step over "
           f"{launches:.0f} kernel launches; idle share "
-          f"{1 - busy_us / 1e6 / step_s:.3f} of the {step_s * 1e3:.3f} ms step"
+          f"{idle:.3f} of the {step_s * 1e3:.3f} ms step"
           f" (profiled and summed in {profile_s:.1f} s)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms/step "
               f"{e.count:6.0f}x  {e.key[:90]}")
+    return idle
 
 
 def main():
@@ -2961,6 +3544,13 @@ def main():
     nstep_err = max(nstep_err, nstep_remote_err)
     print(f"phase 16 (the remote-actor paths) took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["scale_out"], nstep_launches["scale_out"],
+     vtrace_scale_err, nstep_scale_err, scale_shapes) = run_scale_out(
+        smi, device)
+    vtrace_err = max(vtrace_err, vtrace_scale_err)
+    nstep_err = max(nstep_err, nstep_scale_err)
+    print(f"phase 17 (scale-out) took {time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
           f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "
@@ -2972,12 +3562,14 @@ def main():
         # path's [20, 256] under "catch".
         ("vtrace", "seed_rl_tpu/ops/pallas/vtrace_kernel.py:29",
          sum(vtrace_launches.values()), vtrace_err, vtrace_times["main"],
-         {"catch": vtrace_times["catch"]}),
+         {"catch": vtrace_times["catch"],
+          "scale_out_shapes": scale_shapes["vtrace"]}),
         # The loss shape's numbers at the top level, the insert shape's
         # under "insert".
         ("nstep", "seed_rl_tpu/ops/pallas/nstep_kernel.py:36",
          sum(nstep_launches.values()), nstep_err, nstep_times["loss"],
-         {"insert": nstep_times["insert"]}),
+         {"insert": nstep_times["insert"],
+          "scale_out_shapes": scale_shapes["nstep"]}),
     ):
         kernels.append({
             "name": name,

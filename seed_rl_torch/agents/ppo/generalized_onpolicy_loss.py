@@ -27,6 +27,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from seed_rl_torch.ops.popart import PopArt
+from seed_rl_torch.parallel import collectives
 
 
 class LossAux(NamedTuple):
@@ -240,9 +241,9 @@ class GeneralizedOnPolicyLoss:
         logs.update(pl_logs)
 
         v_error = normalized_targets - corrected
-        logs["GeneralizedOnPolicyLoss/V_error"] = torch.mean(v_error)
-        logs["GeneralizedOnPolicyLoss/abs_V_error"] = torch.mean(
-            torch.abs(v_error))
+        logs.update(collectives.means({
+            "GeneralizedOnPolicyLoss/V_error": v_error,
+            "GeneralizedOnPolicyLoss/abs_V_error": torch.abs(v_error)}))
         if self.huber_delta is not None:
             v_loss = _huber(v_error, self.huber_delta)
         else:
@@ -257,14 +258,14 @@ class GeneralizedOnPolicyLoss:
                 if self.huber_delta is not None
                 else torch.square(clipped_err))
             v_loss = torch.maximum(v_loss, clipped_v_loss)
-        v_loss = torch.mean(v_loss)
+        v_loss = collectives.mean(v_loss)
         logs["GeneralizedOnPolicyLoss/v_loss"] = v_loss
 
         if self.regularizer is not None:
             per_step_reg, reg_loss, reg_logs = self._regularizer(
                 loss_params, learner_logits, agent_outputs, generator, noise)
             if not self.include_regularization_in_returns:
-                reg_loss = reg_loss + torch.mean(per_step_reg)
+                reg_loss = reg_loss + collectives.mean(per_step_reg)
             logs.update(reg_logs)
         else:
             reg_loss = 0.0

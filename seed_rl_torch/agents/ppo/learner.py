@@ -27,6 +27,13 @@ regularizer's entropy noise from the learner's generator. ``update`` takes
 both instead (``permutations``: one index tensor per epoch;
 ``entropy_noise``: one tensor per minibatch step), so a test can hold one
 update against the JAX package's ``jax.random`` draws.
+
+On a rank of a mesh (``parallel``) the learner holds its share of the envs.
+The permutation runs over the global unrolls (or transitions), so a
+minibatch holds an uneven share of each rank's; each rank trains on the
+part it holds, every batch statistic runs over the whole minibatch
+(``parallel.collectives``), and the noise of a minibatch is the rank's
+columns of the global draw (or of the injected global noise).
 """
 
 import dataclasses
@@ -40,7 +47,14 @@ import torch.utils._pytree as pytree
 from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
     GeneralizedOnPolicyLoss,
 )
-from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
+from seed_rl_torch.parallel.draws import ShardedGenerator
+from seed_rl_torch.parallel.mesh import Mesh
+from seed_rl_torch.rollout import (
+    ROLLOUT_SHARDS,
+    RolloutEngine,
+    RolloutState,
+    Unroll,
+)
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.action_points import (
     ActionPointSchedule,
@@ -118,6 +132,11 @@ class PPOLearner:
       seed: seeds the generator of the permutations and the entropy noise.
     """
 
+    # The train state's per-rank fields under a mesh (``parallel/dp.py``).
+    SHARDED_FIELDS = {"rollout": ROLLOUT_SHARDS,
+                      "stats": episode_stats.SHARDS}
+    REPLICATED_FIELDS = ("norm_state", "step")
+
     def __init__(
         self,
         engine: RolloutEngine,
@@ -136,7 +155,12 @@ class PPOLearner:
             raise ValueError(
                 "the split batch modes need a stateless net; use shuffle or "
                 "repeat for a recurrent one")
-        n = engine.env.num_envs * (engine.unroll_length if split else 1)
+        # The mesh of this rank's share of the envs (``parallel``); a host
+        # env's is the one-rank mesh.
+        self.mesh = getattr(engine.env, "mesh", None) or Mesh(
+            0, 1, engine.device)
+        num_envs = engine.env.num_envs * self.mesh.size
+        n = num_envs * (engine.unroll_length if split else 1)
         if n % config.batches_per_step:
             raise ValueError(
                 f"{config.batches_per_step} minibatches do not divide the "
@@ -152,7 +176,7 @@ class PPOLearner:
         self.optimizer = optimizer(self.parameters())
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.frames_per_step = engine.unroll_length * engine.env.num_envs
+        self.frames_per_step = engine.unroll_length * num_envs
         # The in-memory snapshots ``learner_loop`` takes at its action
         # points (``utils/action_points.LearnerState``).
         self.snapshots = []
@@ -205,12 +229,13 @@ class PPOLearner:
 
     # -- the minibatch step ---------------------------------------------------
 
-    def _minibatch_step(self, norm_state, minibatch: _Batch, noise):
+    def _minibatch_step(self, norm_state, minibatch: _Batch, noise,
+                        generator):
         self.optimizer.zero_grad()
         loss, aux = self.loss(
             self.loss_params, norm_state, minibatch.agent_state,
             minibatch.prev_actions, minibatch.env_outputs,
-            minibatch.agent_outputs, generator=self.generator, noise=noise,
+            minibatch.agent_outputs, generator=generator, noise=noise,
             normalized_targets=minibatch.targets,
             normalized_advantages=minibatch.advantages)
         loss.backward()
@@ -230,29 +255,62 @@ class PPOLearner:
             if value is not param:
                 param.copy_(value)
 
-    def _epoch(self, norm_state, data: _Batch, shuffle, permutation, noises):
-        """One pass over ``data`` in ``batches_per_step`` minibatches."""
+    def _epoch(self, norm_state, data: _Batch, shuffle, permutation, noises,
+               transitions: bool):
+        """One pass over ``data`` in ``batches_per_step`` minibatches; a
+        permutation runs over the global columns (every rank's)."""
+        size = data.size * self.mesh.size
         if permutation is None:
             permutation = (
-                torch.randperm(data.size, generator=self.generator,
+                torch.randperm(size, generator=self.generator,
                                device=self.device)
-                if shuffle else torch.arange(data.size, device=self.device))
+                if shuffle else torch.arange(size, device=self.device))
         history = []
         for idx in permutation.to(self.device).reshape(
                 self.config.batches_per_step, -1):
+            noise = next(noises)
+            if self.mesh.size == 1:
+                # Every column is this rank's: ``_owned``'s masked indexing
+                # has a data-dependent shape, a host sync this path does not
+                # pay.
+                minibatch, generator = data.take(idx), self.generator
+            else:
+                positions, local = self._owned(idx, transitions)
+                minibatch = data.take(local)
+                if noise is not None:
+                    noise = noise.index_select(1, positions.to(noise.device))
+                generator = ShardedGenerator(self.generator, idx.numel(),
+                                             positions, axis=1)
             norm_state, logs = self._minibatch_step(
-                norm_state, data.take(idx), next(noises))
+                norm_state, minibatch, noise, generator)
             history.append(logs)
         return norm_state, history
+
+    def _owned(self, idx: torch.Tensor, transitions: bool):
+        """The positions in the global minibatch ``idx`` whose column this
+        rank holds, and those columns' local indices. A transition's global
+        index is ``t * B + env`` (``t * B_rank + env - lo`` here)."""
+        env = self.engine.env
+        lo, hi = env.env_ids.start, env.env_ids.stop
+        column = idx % env.global_num_envs if transitions else idx
+        owned = (column >= lo) & (column < hi)
+        positions = torch.nonzero(owned).reshape(-1)
+        local = column[owned] - lo
+        if transitions:
+            local = (idx[owned] // env.global_num_envs) * env.num_envs + local
+        return positions, local
 
     @torch.no_grad()
     def _compute_and_split(self, norm_state, unrolls: _Batch):
         """Advantages once, then the unrolls flattened into transitions
         ([1, T*B])."""
+        generator = self.mesh.draws(
+            self.generator,
+            unrolls.env_outputs.reward.shape[1] * self.mesh.size, 1)
         targets, advantages, norm_state, new_loss_params, logs = (
             self.loss.compute_advantages(
                 self.loss_params, norm_state, *unrolls[:4],
-                generator=self.generator))
+                generator=generator))
         self._assign_loss_params(new_loss_params)
         flat = pytree.tree_map(
             lambda t: t.reshape((1, t.shape[0] * t.shape[1]) + t.shape[2:]),
@@ -291,11 +349,11 @@ class PPOLearner:
                     if epoch == 0 and config.batch_mode == "split":
                         adv_logs = logs
                 norm_state, logs = self._epoch(norm_state, data, True,
-                                               permutation, noises)
+                                               permutation, noises, True)
             else:
                 norm_state, logs = self._epoch(
                     norm_state, unrolls, config.batch_mode == "shuffle",
-                    permutation, noises)
+                    permutation, noises, False)
             history.extend(logs)
 
         stats = episode_stats.update(
@@ -362,10 +420,10 @@ def learner_loop(
         frames = step * frames_per_step
         if logger is not None and step % log_every_steps < steps_per_call:
             metrics = dict(metrics)
-            n = float(state.stats.num_episodes)
+            n, sum_return, _ = episode_stats.window(state.stats,
+                                                    learner.mesh)
             if n > 0:
-                metrics["episodes/mean_return"] = (
-                    float(state.stats.sum_return) / n)
+                metrics["episodes/mean_return"] = sum_return / n
                 state = state._replace(
                     stats=episode_stats.reset_window(state.stats))
             logger.log(step, metrics, frames=frames)
@@ -375,7 +433,8 @@ def learner_loop(
         # snapshots honour the requested count.
         if "checkpoint" in fired and checkpoint is not None:
             checkpoint.maybe_save(step, learner, state, force=True)
-        if "saved_model" in fired and logdir:
+        # Every rank runs the loop; rank 0 alone exports.
+        if "saved_model" in fired and logdir and learner.mesh.rank == 0:
             from seed_rl_torch.utils.export import export_policy
 
             export_policy(os.path.join(logdir, "saved_models", str(frames)),

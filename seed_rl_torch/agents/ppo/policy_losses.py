@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from seed_rl_torch.agents.ppo import constraints
+from seed_rl_torch.parallel import collectives
 
 
 class AdvantagePreprocessor:
@@ -35,13 +36,13 @@ class AdvantagePreprocessor:
     def __call__(self, advantages):
         mask = torch.ones_like(advantages)
         if self.normalize:
-            advantages = advantages - torch.mean(advantages)
+            advantages = advantages - collectives.mean(advantages)
             advantages = advantages / (
-                torch.std(advantages, correction=0) + 1e-8)
+                collectives.std(advantages, correction=0) + 1e-8)
         if self.only_top_half:
-            flat = advantages.reshape(-1)
             # The k-th largest value; ties with it stay in the top half.
-            kth = torch.min(torch.topk(flat, flat.shape[0] // 2).values)
+            kth = collectives.kth_largest(
+                advantages, collectives.count(advantages) // 2)
             mask = mask * (advantages >= kth).to(torch.float32)
         if self.only_positive:
             mask = mask * (advantages > 0.0).to(torch.float32)
@@ -51,7 +52,7 @@ class AdvantagePreprocessor:
 
 
 def softmax_all_dims(t):
-    return torch.softmax(t.reshape(-1), dim=0).reshape(t.shape)
+    return collectives.softmax_all(t)
 
 
 class GeneralizedAdvantagePolicyLoss:
@@ -98,12 +99,15 @@ class GeneralizedAdvantagePolicyLoss:
         parametric_action_distribution=None,
     ):
         name = "GeneralizedAdvantagePolicyLoss/"
-        logs = {
-            name + "advantages": torch.mean(advantages),
-            name + "abs_advantages": torch.mean(torch.abs(advantages)),
-            name + "log_pi": torch.mean(target_action_log_probs),
-            name + "log_mu": torch.mean(behaviour_action_log_probs),
+        # The logged means, reduced together at the end (one all-reduce
+        # under a mesh).
+        averaged = {
+            name + "advantages": advantages,
+            name + "abs_advantages": torch.abs(advantages),
+            name + "log_pi": target_action_log_probs,
+            name + "log_mu": behaviour_action_log_probs,
         }
+        logs = {}
         advantages, mask = self.advantage_preprocessor(advantages)
 
         before_transformation = None
@@ -119,7 +123,7 @@ class GeneralizedAdvantagePolicyLoss:
             if self.max_advantage is not None:
                 advantages = torch.clamp(advantages, max=self.max_advantage)
             advantages = advantages * mask
-        logs[name + "processed_advantages"] = torch.mean(advantages)
+        averaged[name + "processed_advantages"] = advantages
 
         loss = -target_action_log_probs * advantages.detach()
         log_rho = (target_action_log_probs
@@ -134,26 +138,29 @@ class GeneralizedAdvantagePolicyLoss:
             loss_mask = (~(clip_pos | clip_neg)).to(torch.float32)
             loss = loss * loss_mask
             log_rho = log_rho * loss_mask  # no overflow in exp
-            logs[name + "p_ppo_clipped"] = 1 - torch.mean(loss_mask)
+            averaged[name + "p_ppo_clipped"] = loss_mask
         if self.max_importance_weight is not None:
             log_rho = torch.clamp(log_rho,
                                   max=math.log(self.max_importance_weight))
-        logs[name + "log_rho"] = torch.mean(log_rho)
+        averaged[name + "log_rho"] = log_rho
         if self.use_importance_weights:
             loss = loss * torch.exp(log_rho)
-        loss = torch.mean(loss)
+        loss = collectives.mean(loss)
 
         if self.advantage_transformation is not None:
             # Temperature adjustment: KL between the nonparametric target
             # distribution and the behaviour one (V-MPO eq. 4).
             adv = before_transformation * mask
             adv = adv - (1.0 - mask) * 1e3  # -> 0 after exp
-            kl = torch.logsumexp(adv.reshape(-1), dim=0) - torch.log(
-                torch.sum(mask) + 1e-3)
+            kl = collectives.logsumexp(adv) - torch.log(
+                collectives.sum(mask) + 1e-3)
             logs[name + "mpo_kl"] = kl
             loss = loss + self.temperature.adjustment_loss(
                 params["temperature"], kl)
-        return loss, logs
+        means = collectives.means(averaged)
+        if name + "p_ppo_clipped" in means:
+            means[name + "p_ppo_clipped"] = 1 - means[name + "p_ppo_clipped"]
+        return loss, {**means, **logs}
 
 
 def pg():

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from seed_rl_torch.agents.ppo import constraints
+from seed_rl_torch.parallel import collectives
 
 _VALID = ("kl_pi_mu", "kl_mu_pi", "entropy", "kl_ref_pi")
 
@@ -60,11 +61,10 @@ class KLPolicyRegularizer:
                 dist.entropy(pi_logits, generator, noise)
                 if dist.reparametrizable else dist.entropy(pi_logits)),
         }
-        logs = {
-            f"KLPolicyRegularizer/{k}": torch.mean(
-                v * (-1.0 if k == "entropy" else 1.0))
+        logs = collectives.means({
+            f"KLPolicyRegularizer/{k}": v * (-1.0 if k == "entropy" else 1.0)
             for k, v in losses.items()
-        }
+        })
         per_step_loss = torch.zeros(pi_logits.shape[:-1],
                                     device=pi_logits.device)
         global_loss = torch.zeros((), device=pi_logits.device)
@@ -74,7 +74,8 @@ class KLPolicyRegularizer:
                 params[key])
             per_step_loss = per_step_loss + coe.scale_loss(params[key], loss)
             global_loss = global_loss + coe.adjustment_loss(
-                params[key], torch.mean(loss))
-        logs["KLPolicyRegularizer/per_step_loss"] = torch.mean(per_step_loss)
+                params[key], collectives.mean(loss))
+        logs["KLPolicyRegularizer/per_step_loss"] = collectives.mean(
+            per_step_loss.detach())
         logs["KLPolicyRegularizer/global_loss"] = global_loss
         return per_step_loss, global_loss, logs

@@ -45,8 +45,18 @@ import torch.utils._pytree as pytree
 
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops.cuda import nstep_kernel
-from seed_rl_torch.replay import PrioritizedReplay, ReplayState
-from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
+from seed_rl_torch.parallel import collectives, draws
+from seed_rl_torch.replay import (
+    REPLAY_SHARDS,
+    PrioritizedReplay,
+    ReplayState,
+)
+from seed_rl_torch.rollout import (
+    ROLLOUT_SHARDS,
+    RolloutEngine,
+    RolloutState,
+    Unroll,
+)
 from seed_rl_torch.types import QAgentOutput
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
@@ -96,12 +106,11 @@ class R2D2Agent:
         batch = output.action.shape[0]
         device = output.action.device
         if random_actions is None:
-            random_actions = torch.randint(
-                0, self.num_actions, (batch,), generator=generator,
-                device=device, dtype=torch.int32,
-            )
+            random_actions = draws.randint(
+                0, self.num_actions, (batch,), generator, device=device,
+                dtype=torch.int32)
         if uniform is None:
-            uniform = torch.rand((batch,), generator=generator, device=device)
+            uniform = draws.rand((batch,), generator, device=device)
         epsilons = (self.epsilons if env_ids is None
                     else self.epsilons[env_ids])
         take_random = uniform < epsilons
@@ -307,20 +316,25 @@ class R2D2Update:
         ``functools.partial(optim.ClippedAdam, learning_rate=1e-4,
         clip_norm=40.0)``; its ``step()`` returns the pre-clip norm.
       num_envs: the envs of a rollout, eval envs included.
+      num_training_envs: how many of them train (default: all but
+        ``config.num_eval_envs``; a rank's share of the envs holds its own
+        count).
     """
 
     def __init__(self, agent: R2D2Agent, config: R2D2Config,
                  optimizer: Callable[[List[torch.Tensor]], Any],
-                 num_envs: int):
+                 num_envs: int, num_training_envs: Optional[int] = None):
         self.agent = agent
         self.config = config
         self.net = agent.net
         self.target_net = copy.deepcopy(agent.net).requires_grad_(False)
         self.optimizer = optimizer(self.parameters())
         self.num_envs = num_envs
-        self.num_training_envs = num_envs - config.num_eval_envs
-        if self.num_training_envs <= 0:
+        if num_envs - config.num_eval_envs <= 0 and num_training_envs is None:
             raise ValueError("num_eval_envs must leave some training envs")
+        self.num_training_envs = (num_envs - config.num_eval_envs
+                                  if num_training_envs is None
+                                  else num_training_envs)
 
     def parameters(self) -> List[torch.nn.Parameter]:
         """Everything the optimizer updates: the online network."""
@@ -362,15 +376,16 @@ class R2D2Update:
             target=config.target,
             retrace_lambda=config.retrace_lambda,
         )
-        loss = torch.mean(loss * weights)
+        # Means over the batch: over every rank's share under a mesh.
+        loss = collectives.mean(loss * weights)
         self.optimizer.zero_grad()
         loss.backward()
         grad_norm = self.optimizer.step()
         logs = {
             "losses/td": loss.detach(),
             "grad/norm": grad_norm,
-            "replay/sampled_priority_mean": torch.mean(priorities),
-            "replay/importance_weight_mean": torch.mean(weights),
+            "replay/sampled_priority_mean": collectives.mean(priorities),
+            "replay/importance_weight_mean": collectives.mean(weights),
         }
         return priorities, logs
 
@@ -389,6 +404,12 @@ class R2D2Learner(R2D2Update):
       seed: seeds the generator of the replay's sampling.
     """
 
+    # The train state's per-rank fields under a mesh (``parallel/dp.py``).
+    SHARDED_FIELDS = {"replay": REPLAY_SHARDS, "rollout": ROLLOUT_SHARDS,
+                      "stats": episode_stats.SHARDS,
+                      "eval_stats": episode_stats.SHARDS}
+    REPLICATED_FIELDS = ("step",)
+
     def __init__(
         self,
         engine: RolloutEngine,
@@ -401,18 +422,31 @@ class R2D2Learner(R2D2Update):
             raise ValueError(
                 f"the rollout overlap ({engine.overlap}) must equal burn_in "
                 f"({config.burn_in})")
-        super().__init__(agent, config, optimizer, engine.env.num_envs)
+        env = engine.env
+        # The mesh of this rank's share of the envs (``parallel``).
+        self.mesh = env.mesh
+        # Training envs are the global ids below the eval envs'.
+        training = env.global_num_envs - config.num_eval_envs
+        if training <= 0:
+            raise ValueError("num_eval_envs must leave some training envs")
+        lo, hi = env.env_ids.start, env.env_ids.stop
+        if config.batch_size % self.mesh.size:
+            raise ValueError(f"batch_size={config.batch_size} does not "
+                             f"divide over {self.mesh.size} replicas")
+        super().__init__(agent, config, optimizer, env.num_envs,
+                         min(max(training - lo, 0), hi - lo))
         self.engine = engine
-        self.device = engine.env.device
+        self.device = env.device
         if config.replay_buffer_min_size > config.replay_buffer_size:
             raise ValueError("replay_buffer_min_size exceeds the buffer")
         self.replay = PrioritizedReplay(
-            config.replay_buffer_size, config.importance_sampling_exponent
-        )
+            config.replay_buffer_size, config.importance_sampling_exponent,
+            mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.frames_per_step = (
-            engine.unroll_length * self.num_envs * config.num_action_repeats
+            engine.unroll_length * self.num_envs * self.mesh.size
+            * config.num_action_repeats
         )
 
     def state_tensors(self, state: R2D2TrainState) -> List[torch.Tensor]:
@@ -456,12 +490,17 @@ class R2D2Learner(R2D2Update):
     def init(self) -> R2D2TrainState:
         """Starts the rollout, an empty replay and the counters."""
         rollout = self.engine.init()
+        # This rank's eval envs; without any, rank 0 holds the one
+        # placeholder accumulator, so the ranks' concatenation is the
+        # one-rank layout.
+        num_eval = self.num_envs - self.num_training_envs
+        if not self.config.num_eval_envs and self.mesh.rank == 0:
+            num_eval = 1
         return R2D2TrainState(
             replay=self.replay.init_state(self._example_item(rollout)),
             rollout=rollout,
             stats=episode_stats.init(self.num_training_envs, self.device),
-            eval_stats=episode_stats.init(
-                max(self.config.num_eval_envs, 1), self.device),
+            eval_stats=episode_stats.init(num_eval, self.device),
             step=0,
         )
 
@@ -502,7 +541,12 @@ class R2D2Learner(R2D2Update):
             state.replay, self.generator, config.batch_size,
             config.priority_exponent, indices=indices,
         )
-        priorities, logs = self.optimize(items, weights)
+        # Every rank holds the global batch and trains on its share; the
+        # priorities come back in the global batch order.
+        part = self.mesh.shard(config.batch_size)
+        priorities, logs = self.optimize(
+            pytree.tree_map(lambda t: t[part], items), weights[part])
+        priorities = self.mesh.all_gather(priorities)
         replay = self.replay.update_priorities(
             state.replay, indices, priorities)
         return state._replace(replay=replay), logs
@@ -626,10 +670,11 @@ def learner_loop(
                 ("episodes", state.stats),
                 ("eval_episodes", state.eval_stats),
             ):
-                n = float(stats.num_episodes)
+                n, sum_return, sum_length = episode_stats.window(
+                    stats, learner.mesh)
                 if n > 0:
-                    metrics[f"{name}/mean_return"] = float(stats.sum_return) / n
-                    metrics[f"{name}/mean_length"] = float(stats.sum_length) / n
+                    metrics[f"{name}/mean_return"] = sum_return / n
+                    metrics[f"{name}/mean_length"] = sum_length / n
             state = state._replace(
                 stats=episode_stats.reset_window(state.stats),
                 eval_stats=episode_stats.reset_window(state.eval_stats),

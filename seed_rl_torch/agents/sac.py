@@ -44,13 +44,21 @@ import torch.utils._pytree as pytree
 
 from seed_rl_torch.distributions import ParametricDistribution
 from seed_rl_torch.ops import normalizer
+from seed_rl_torch.parallel import collectives
+from seed_rl_torch.parallel.mesh import Mesh
 from seed_rl_torch.replay import (
+    REPLAY_SHARDS,
     HERDraws,
     HindsightExperienceReplay,
     PrioritizedReplay,
     ReplayState,
 )
-from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
+from seed_rl_torch.rollout import (
+    ROLLOUT_SHARDS,
+    RolloutEngine,
+    RolloutState,
+    Unroll,
+)
 from seed_rl_torch.types import AgentOutput
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
@@ -213,7 +221,10 @@ def compute_loss(
     generator: Optional[torch.Generator] = None,
     noise: SACNoise = SACNoise(),
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss and metrics on time-major ``[T + 1, B]`` inputs."""
+    """Total loss and metrics on time-major ``[T + 1, B]`` inputs. Under
+    ``collectives.over(mesh)`` the batch statistics (means, the discrete
+    actor's std) run over every rank's share of the batch."""
+    mean = collectives.mean
     if config.bootstrap_net not in ("v", "q"):
         raise ValueError(f"unknown bootstrap_net {config.bootstrap_net!r}")
     dist = agent.distribution
@@ -264,18 +275,19 @@ def compute_loss(
             None if emb_in is None else emb_in.detach()))
         (grad_action,) = torch.autograd.grad(
             torch.sum(torch.min(q_leaf, dim=-1).values), leaf)
-        actor_loss = (-torch.mean(grad_action * action)
-                      - sg_alpha * torch.mean(entropy))
+        actor_loss = (-mean(grad_action * action)
+                      - sg_alpha * mean(entropy))
     else:
         advantage = (actor_objective - v).detach()
-        advantage = advantage - torch.mean(advantage)
+        advantage = advantage - mean(advantage)
         # jnp.std: the population std.
-        advantage = advantage / (torch.std(advantage, correction=0) + 0.001)
-        actor_loss = -torch.mean(advantage * logp_action)
+        advantage = advantage / (collectives.std(advantage, correction=0)
+                                 + 0.001)
+        actor_loss = -mean(advantage * logp_action)
 
     target_v_now = actor_objective.detach()
     v_error = v - target_v_now
-    v_loss = torch.mean(torch.square(v_error))
+    v_loss = mean(torch.square(v_error))
 
     q_old_action = agent.q(*inputs, agent_actions[:-1], embedding=emb_in)
     with torch.no_grad():  # the Q target is a stop-gradient
@@ -297,25 +309,26 @@ def compute_loss(
                 embedding=target_agent.embed(*target_inputs))[1:]
         target_q = rewards + discounts * next_v
     q_error = q_old_action - target_q[..., None]
-    q_loss = torch.mean(torch.square(q_error))
+    q_loss = mean(torch.square(q_error))
+    mean_entropy = mean(entropy.detach())
 
     if config.target_entropy is not None:
         entropy_adjustment_loss = alpha * (
-            torch.mean(entropy) - config.target_entropy).detach()
+            mean_entropy - config.target_entropy).detach()
     else:
         entropy_adjustment_loss = 0.0 * alpha
 
     total_loss = actor_loss + q_loss + v_loss + entropy_adjustment_loss
     metrics = {
-        "Q/value": torch.mean(q_action),
-        "Q/L2_error": torch.sqrt(torch.mean(torch.square(q_error))),
-        "V/value": torch.mean(v),
-        "V/L2_error": torch.sqrt(torch.mean(torch.square(v_error))),
+        "Q/value": mean(q_action.detach()),
+        "Q/L2_error": torch.sqrt(mean(torch.square(q_error.detach()))),
+        "V/value": mean(v.detach()),
+        "V/L2_error": torch.sqrt(mean(torch.square(v_error.detach()))),
         "losses/actor": actor_loss,
         "losses/Q": q_loss,
         "losses/V": v_loss,
         "losses/total": total_loss,
-        "policy/entropy": torch.mean(entropy),
+        "policy/entropy": mean_entropy,
         "policy/entropy_cost": alpha,
     }
     return total_loss, {k: m.detach() for k, m in metrics.items()}
@@ -403,17 +416,18 @@ class SACUpdate:
                 lambda t, o: p * t + (1.0 - p) * o,
                 self.target_agent.obs_norm, self.agent.obs_norm)
 
-    def optimize(self, items: StoredUnroll, noise: SACNoise = SACNoise()):
+    def optimize(self, items: StoredUnroll, noise: SACNoise = SACNoise(),
+                 generator=None):
         """One optimization batch on item-major ``items``: loss (with
-        ``noise`` in place of the generator's draws), clip + Adam, the
-        alpha clip. Returns the metrics."""
+        ``noise`` in place of the draws from ``generator``, by default the
+        learner's), clip + Adam, the alpha clip. Returns the metrics."""
         config = self.config
         prev_actions, env_outputs, agent_actions = _time_major(
             (items.prev_actions, items.env_outputs, items.agent_actions))
         loss, metrics = compute_loss(
             config, self.agent, self.target_agent, self.entropy_cost,
             items.agent_state, prev_actions, env_outputs, agent_actions,
-            self.generator, noise)
+            self.generator if generator is None else generator, noise)
         self.optimizer.zero_grad()
         loss.backward()
         metrics["grad/norm"] = self.optimizer.step()
@@ -458,6 +472,11 @@ class SACLearner(SACUpdate):
       seed: seeds the generator of the replay's draws and the loss's noise.
     """
 
+    # The train state's per-rank fields under a mesh (``parallel/dp.py``).
+    SHARDED_FIELDS = {"replay": REPLAY_SHARDS, "rollout": ROLLOUT_SHARDS,
+                      "stats": episode_stats.SHARDS}
+    REPLICATED_FIELDS = ("step", "batches")
+
     def __init__(
         self,
         engine: RolloutEngine,
@@ -471,6 +490,13 @@ class SACLearner(SACUpdate):
             raise ValueError("SAC uses the 1-step boundary overlap only")
         if config.replay_buffer_min_size > config.replay_buffer_size:
             raise ValueError("replay_buffer_min_size exceeds the buffer")
+        # The mesh of this rank's share of the envs (``parallel``); an env
+        # without one is the one-rank mesh's.
+        self.mesh = mesh = getattr(engine.env, "mesh", None) or Mesh(
+            0, 1, engine.env.device)
+        if config.batch_size % mesh.size:
+            raise ValueError(f"batch_size={config.batch_size} does not "
+                             f"divide over {mesh.size} replicas")
         if config.her_window_length:
             if engine.unroll_length != config.her_window_length:
                 raise ValueError("under HER the rollout unroll must be "
@@ -482,16 +508,19 @@ class SACLearner(SACUpdate):
                 compute_reward_fn=compute_reward_fn,
                 unroll_length=config.unroll_length,
                 substitution_probability=config.her_substitution_probability,
+                mesh=mesh,
             )
         else:
             if engine.unroll_length != config.unroll_length:
                 raise ValueError("the rollout unroll must be unroll_length")
             self.replay = PrioritizedReplay(
-                config.replay_buffer_size, importance_sampling_exponent=0.0)
+                config.replay_buffer_size, importance_sampling_exponent=0.0,
+                mesh=mesh)
         super().__init__(agent, config, optimizer, engine.env.device, seed)
         self.engine = engine
         self.num_envs = engine.env.num_envs
-        self.frames_per_step = engine.unroll_length * self.num_envs
+        self.frames_per_step = (engine.unroll_length * self.num_envs
+                                * mesh.size)
 
     def state_tensors(self, state: SACTrainState) -> List[torch.Tensor]:
         """The train state's tensors, the target net's and the observation
@@ -580,7 +609,15 @@ class SACLearner(SACUpdate):
         _, _, items = self.replay.sample(
             state.replay, self.generator, config.batch_size, 0,
             indices=indices, **sample_kw)
-        metrics = self.optimize(items, noise)
+        # Every rank holds the global batch and trains on its share, with
+        # its columns of the loss's global draws (or of the injected global
+        # noise).
+        part = self.mesh.shard(config.batch_size)
+        noise = SACNoise(*(None if n is None else n[:, part]
+                           for n in noise))
+        metrics = self.optimize(
+            pytree.tree_map(lambda t: t[part], items), noise,
+            self.mesh.draws(self.generator, config.batch_size, 1))
         batches = state.batches + 1
         if batches % config.update_target_every_n_step == 0:
             self._move_target()
@@ -707,10 +744,10 @@ def learner_loop(
         step = state.step
         if logger is not None and step % log_every_steps < steps_per_call:
             metrics = dict(metrics)
-            n = float(state.stats.num_episodes)
+            n, sum_return, _ = episode_stats.window(state.stats,
+                                                    learner.mesh)
             if n > 0:
-                metrics["episodes/mean_return"] = (
-                    float(state.stats.sum_return) / n)
+                metrics["episodes/mean_return"] = sum_return / n
                 state = state._replace(
                     stats=episode_stats.reset_window(state.stats))
             logger.log(step, metrics, frames=step * frames_per_step)

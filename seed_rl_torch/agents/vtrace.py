@@ -27,7 +27,14 @@ import torch.utils._pytree as pytree
 from seed_rl_torch.agent import PolicyAgent
 from seed_rl_torch.distributions import ParametricDistribution
 from seed_rl_torch.ops.cuda import vtrace_kernel as vtrace_ops
-from seed_rl_torch.rollout import RolloutEngine, RolloutState, Unroll
+from seed_rl_torch.parallel import collectives
+from seed_rl_torch.parallel.mesh import Mesh
+from seed_rl_torch.rollout import (
+    ROLLOUT_SHARDS,
+    RolloutEngine,
+    RolloutState,
+    Unroll,
+)
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
 
@@ -117,11 +124,13 @@ def compute_loss(
         **inputs, lambda_=config.lambda_
     )
 
-    policy_loss = -torch.mean(target_logp * returns.pg_advantages)
+    # Means over the batch: over every rank's share under a mesh.
+    mean = collectives.mean
+    policy_loss = -mean(target_logp * returns.pg_advantages)
     v_error = returns.vs - values
-    v_loss = config.baseline_cost * 0.5 * torch.mean(torch.square(v_error))
+    v_loss = config.baseline_cost * 0.5 * mean(torch.square(v_error))
 
-    entropy = torch.mean(
+    entropy = mean(
         dist.entropy(learner_logits, generator, entropy_noise)
         if dist.reparametrizable
         else dist.entropy(learner_logits)
@@ -130,7 +139,8 @@ def compute_loss(
     entropy_loss = entropy_cost.detach() * -entropy
 
     kl = behaviour_logp - target_logp
-    kl_loss = config.kl_cost * torch.mean(kl)
+    kl_mean = mean(kl)
+    kl_loss = config.kl_cost * kl_mean
 
     if config.target_entropy is not None:
         entropy_adjustment_loss = entropy_cost * (
@@ -143,8 +153,8 @@ def compute_loss(
         policy_loss + v_loss + entropy_loss + kl_loss + entropy_adjustment_loss
     )
     metrics = {
-        "V/value_function": torch.mean(values),
-        "V/L2_error": torch.sqrt(torch.mean(torch.square(v_error))),
+        "V/value_function": mean(values.detach()),
+        "V/L2_error": torch.sqrt(mean(torch.square(v_error.detach()))),
         "losses/policy": policy_loss,
         "losses/V": v_loss,
         "losses/entropy": entropy_loss,
@@ -152,7 +162,7 @@ def compute_loss(
         "losses/total": total_loss,
         "policy/entropy": entropy,
         "policy/entropy_cost": entropy_cost,
-        "policy/kl(old|new)": torch.mean(kl),
+        "policy/kl(old|new)": kl_mean,
     }
     return total_loss, {k: v.detach() for k, v in metrics.items()}
 
@@ -168,6 +178,11 @@ class VTraceLearner:
         ``functools.partial(optim.ClippedAdam, learning_rate=3e-4)``.
       seed: seeds the generator of the sample-based entropy estimate.
     """
+
+    # The train state's per-rank fields under a mesh (``parallel/dp.py``).
+    SHARDED_FIELDS = {"rollout": ROLLOUT_SHARDS,
+                      "stats": episode_stats.SHARDS}
+    REPLICATED_FIELDS = ("step",)
 
     def __init__(
         self,
@@ -194,9 +209,12 @@ class VTraceLearner:
         self.optimizer = optimizer(self.parameters())
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # The mesh of this rank's share of the envs (``parallel``); a host
+        # env's is the one-rank mesh.
+        self.mesh = getattr(engine.env, "mesh", None) or Mesh(
+            0, 1, self.device)
         self.frames_per_step = (
-            engine.unroll_length
-            * engine.env.num_envs
+            engine.unroll_length * engine.env.num_envs * self.mesh.size
             * config.num_action_repeats
         )
 
@@ -251,11 +269,18 @@ class VTraceLearner:
         unroll: Unroll,
         entropy_noise: Optional[torch.Tensor] = None,
     ) -> Tuple[VTraceTrainState, Dict[str, torch.Tensor]]:
-        """One optimization step on a collected unroll."""
+        """One optimization step on a collected unroll (``entropy_noise``:
+        the global ``[T, B, ...]`` noise in place of the draw)."""
         self.optimizer.zero_grad()
+        # The entropy noise is this rank's env columns of the global draw
+        # (or of the injected global noise).
+        total = unroll.timesteps.prev_action.shape[1] * self.mesh.size
+        generator = self.mesh.draws(self.generator, total, 1)
+        if entropy_noise is not None:
+            entropy_noise = entropy_noise[:, self.mesh.shard(total)]
         loss, metrics = compute_loss(
             self.config, self.agent, self.agent.distribution,
-            self.entropy_cost, unroll, self.generator, entropy_noise,
+            self.entropy_cost, unroll, generator, entropy_noise,
         )
         loss.backward()
         self.optimizer.step()
@@ -327,11 +352,12 @@ def learner_loop(
         step = state.step
         if logger is not None and step % log_every_steps < steps_per_call:
             stats = state.stats
-            n = float(stats.num_episodes)
+            n, sum_return, sum_length = episode_stats.window(
+                stats, learner.mesh)
             if n > 0:
                 metrics = dict(metrics)
-                metrics["episodes/mean_return"] = float(stats.sum_return) / n
-                metrics["episodes/mean_length"] = float(stats.sum_length) / n
+                metrics["episodes/mean_return"] = sum_return / n
+                metrics["episodes/mean_length"] = sum_length / n
                 state = state._replace(
                     stats=episode_stats.reset_window(stats)
                 )

@@ -2,7 +2,8 @@
 
 Port of ``seed_rl_tpu/distributions.py``: each distribution is a stateless
 object whose methods are functions of the parameter tensor. Sampling takes
-an explicit ``torch.Generator``; ``sample`` and ``entropy`` also take an
+an explicit ``torch.Generator`` (or a rank's ``parallel.draws.ShardedGenerator``);
+``sample`` and ``entropy`` also take an
 optional ``noise`` tensor, which replaces the draw (standard normal noise
 for the normals, Gumbel noise for the categoricals). The tests hand both
 packages the same noise, since ``jax.random`` and ``torch.Generator``
@@ -21,6 +22,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from seed_rl_torch.parallel import draws
 
 _HALF_LOG_2PI_E = 0.5 * math.log(2.0 * math.pi * math.e)
 
@@ -64,18 +67,16 @@ class ParametricDistribution(abc.ABC):
 def _normal_noise(shape, like, generator, noise):
     if noise is not None:
         return noise.to(like.dtype)
-    return torch.randn(
-        shape, generator=generator, device=like.device, dtype=like.dtype
-    )
+    return draws.randn(shape, generator, device=like.device,
+                       dtype=like.dtype)
 
 
 def _gumbel_noise(like, generator, noise):
     if noise is not None:
         return noise.to(like.dtype)
     tiny = torch.finfo(like.dtype).tiny
-    uniform = torch.rand(
-        like.shape, generator=generator, device=like.device, dtype=like.dtype
-    )
+    uniform = draws.rand(like.shape, generator, device=like.device,
+                         dtype=like.dtype)
     return -torch.log(-torch.log(uniform.clamp(min=tiny)))
 
 

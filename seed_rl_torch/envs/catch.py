@@ -21,6 +21,7 @@ import torch
 
 from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
 from seed_rl_torch.envs.spaces import Box, Discrete
+from seed_rl_torch.parallel import draws
 
 
 class CatchState(NamedTuple):
@@ -72,7 +73,7 @@ class CatchEnv(TensorEnv):
         return frame[..., None]
 
     def _spawn(self, num_envs, generator):
-        return torch.randint(0, self.cols, (num_envs,), generator=generator,
+        return draws.randint(0, self.cols, (num_envs,), generator,
                              device=generator.device, dtype=torch.int32)
 
     def reset(self, num_envs, generator):

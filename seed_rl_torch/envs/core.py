@@ -4,7 +4,8 @@ Port of ``seed_rl_tpu/envs/core.py``. The JAX package writes one env as
 pure functions and batches it with ``vmap``; here a ``TensorEnv`` works on
 a leading batch axis itself, with its state a tuple of ``[B, ...]`` tensors
 on the device and its randomness drawn from a ``torch.Generator`` the
-caller passes in.
+caller passes in (or a ``parallel.draws.ShardedGenerator``: env code draws
+through ``parallel.draws``, which takes either).
 
 The per-transition contract is unchanged:
 ``EnvOutput = (reward, done, observation, abandoned, episode_step)`` with
@@ -20,6 +21,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from seed_rl_torch.device import resolve_device
+from seed_rl_torch.parallel.mesh import Mesh
 from seed_rl_torch.types import EnvOutput
 
 
@@ -123,15 +125,24 @@ class BatchedEnv:
     """Runs a ``TensorEnv`` over ``num_envs`` envs with auto-reset.
 
     Owns the device and the generator every reset and step draws from.
+    It runs its rank's share of ``num_envs`` global envs, ``env_ids``, on
+    a ``mesh`` (``seed_rl_torch.parallel``; by default the one-rank mesh,
+    whose share is every env), and ``self.num_envs`` is the share's size;
+    its draws are its slice of the global ones, so each env steps as it
+    does in a one-rank run.
     """
 
     def __init__(self, env: TensorEnv, num_envs: int, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.env = env
-        self.num_envs = num_envs
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(0, 1, self.device)
+        self.global_num_envs = num_envs
+        self.env_ids = self.mesh.shard(num_envs)
+        self.num_envs = self.env_ids.stop - self.env_ids.start
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.draws = self.mesh.draws(self.generator, num_envs)
 
     def observation_spec(self):
         return self.env.observation_spec()
@@ -141,7 +152,7 @@ class BatchedEnv:
         return self.env.action_space
 
     def reset(self) -> Tuple[BatchedEnvState, EnvOutput]:
-        states, obs = self.env.reset(self.num_envs, self.generator)
+        states, obs = self.env.reset(self.num_envs, self.draws)
         zeros = dict(size=(self.num_envs,), device=self.device)
         env_output = EnvOutput(
             reward=torch.zeros(**zeros, dtype=torch.float32),
@@ -158,15 +169,13 @@ class BatchedEnv:
     def step(
         self, state: BatchedEnvState, action
     ) -> Tuple[BatchedEnvState, EnvOutput]:
-        result = self.env.step(state.env_state, action, self.generator)
+        result = self.env.step(state.env_state, action, self.draws)
         done = result.terminated | result.abandoned
         episode_step = state.episode_step + 1
 
         # Auto-reset: draw fresh states for every env and select where done,
         # which keeps the step free of data-dependent shapes and host syncs.
-        reset_states, reset_obs = self.env.reset(
-            self.num_envs, self.generator
-        )
+        reset_states, reset_obs = self.env.reset(self.num_envs, self.draws)
         new_env_state = _tree_where(done, reset_states, result.state)
         observation = _tree_where(done, reset_obs, result.observation)
 

@@ -27,6 +27,7 @@ import torch
 
 from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
 from seed_rl_torch.envs.spaces import Box, Discrete
+from seed_rl_torch.parallel import draws
 
 
 class _SynthState(NamedTuple):
@@ -69,7 +70,7 @@ class SyntheticAtariEnv(TensorEnv):
         return frames.expand(-1, -1, w, -1).contiguous()
 
     def reset(self, num_envs, generator):
-        seed = torch.randint(0, 255, (num_envs,), generator=generator,
+        seed = draws.randint(0, 255, (num_envs,), generator,
                              device=generator.device, dtype=torch.int32)
         state = _SynthState(t=torch.zeros_like(seed), seed=seed)
         return state, self._obs(state)

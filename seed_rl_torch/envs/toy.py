@@ -22,6 +22,7 @@ import torch
 
 from seed_rl_torch.envs.core import StepResult, TensorEnv, TensorSpec
 from seed_rl_torch.envs.spaces import Box, Discrete
+from seed_rl_torch.parallel import draws
 
 
 def _one_hot(index, n):
@@ -32,7 +33,7 @@ def _one_hot(index, n):
 
 def _uniform(shape, generator):
     """U[-1, 1) draws on the generator's device."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = draws.rand(shape, generator, device=generator.device)
     return u * 2.0 - 1.0
 
 
@@ -158,8 +159,8 @@ class DiscreteMatchEnv(TensorEnv):
         return self._action_space
 
     def _draw_target(self, num_envs, generator):
-        return torch.randint(0, self.n_actions, (num_envs,),
-                             generator=generator, device=generator.device)
+        return draws.randint(0, self.n_actions, (num_envs,), generator,
+                             device=generator.device)
 
     def _obs(self, target):
         return torch.nn.functional.one_hot(target, self.n_actions).to(
@@ -229,7 +230,7 @@ class BitFlippingEnv(TensorEnv):
         return torch.clamp(-mismatches, -1.0, 0.0)
 
     def _coin_flips(self, num_envs, generator):
-        return (torch.rand((num_envs, self.n_bits), generator=generator,
+        return (draws.rand((num_envs, self.n_bits), generator,
                            device=generator.device) < 0.5).to(torch.float32)
 
     def reset(self, num_envs, generator):

@@ -9,8 +9,9 @@ the network sees it, and the learners fold the statistics once per
 training step. A dict observation is concatenated along its last axis in
 sorted key order, as ``jax.tree.leaves`` orders it.
 
-The JAX package's ``axis_name`` (increments summed over a mesh axis) waits
-for scale-out; one device sees the whole batch.
+The JAX package's ``axis_name`` (increments summed over a mesh axis) is
+``parallel.collectives``: under a mesh the count and sums of every rank's
+batch are added, so the statistics stay replicated.
 """
 
 from typing import NamedTuple, Tuple
@@ -18,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from seed_rl_torch.parallel import collectives
 from seed_rl_torch.utils import tree
 
 
@@ -40,9 +42,9 @@ def init(size: int, device=None) -> NormalizerState:
 def update(state: NormalizerState, batch: torch.Tensor) -> NormalizerState:
     """Folds a batch (``[..., size]``) into the statistics."""
     flat = batch.to(torch.float32).reshape(-1, batch.shape[-1])
-    steps = state.steps + float(flat.shape[0])
-    total = state.sum + torch.sum(flat, dim=0)
-    totalsq = state.sumsq + torch.sum(torch.square(flat), dim=0)
+    steps = state.steps + float(collectives.count(flat, 0))
+    total = state.sum + collectives.sum(flat, dim=0)
+    totalsq = state.sumsq + collectives.sum(torch.square(flat), dim=0)
     mean = total / steps
     std = torch.sqrt(torch.clamp(totalsq / steps - torch.square(mean),
                                  min=0.0))

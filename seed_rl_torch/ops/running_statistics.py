@@ -7,14 +7,16 @@ buffer level that keeps float32 precision over long runs).
 
 Each tracker is a stateless object: ``init_state(size, device) -> state``,
 ``update(state, data) -> state`` and ``mean_std(state) -> (mean, std)``;
-``data`` is ``[..., size]`` and reduced over all leading dims. States are
+``data`` is ``[..., size]`` and reduced over all leading dims (and over
+every rank's share under ``parallel.collectives.over``). States are
 NamedTuples of tensors, made anew by each update.
 """
 
-import math
 from typing import NamedTuple, Tuple
 
 import torch
+
+from seed_rl_torch.parallel import collectives
 
 
 def _reduce_dims(data: torch.Tensor) -> Tuple[int, ...]:
@@ -64,8 +66,8 @@ class EMAMeanStd(MeanStd):
     def update(self, state: EMAState, data) -> EMAState:
         data = data.to(torch.float32)
         dims = _reduce_dims(data)
-        batch_m1 = torch.mean(data, dim=dims)
-        batch_m2 = torch.mean(torch.square(data), dim=dims)
+        batch_m1 = collectives.mean(data, dim=dims)
+        batch_m2 = collectives.mean(torch.square(data), dim=dims)
         return EMAState(
             first_moment=state.first_moment
             + self._beta * (batch_m1 - state.first_moment),
@@ -119,13 +121,13 @@ class AverageMeanStd(MeanStd):
     def update(self, state: AverageState, data) -> AverageState:
         data = data.to(torch.float32)
         dims = _reduce_dims(data)
-        count = float(math.prod(data.shape[:-1]))
+        count = float(collectives.count(data, dims))
         observation_count = state.observation_count + count
 
         diff_to_old_mean = data - state.mean
         mean = state.mean + (
-            torch.sum(diff_to_old_mean, dim=dims) / observation_count)
-        variance_update = torch.sum(
+            collectives.sum(diff_to_old_mean, dim=dims) / observation_count)
+        variance_update = collectives.sum(
             diff_to_old_mean * (data - mean), dim=dims)
         return AverageState(
             observation_count=observation_count,

@@ -9,7 +9,10 @@ optax.adam(schedule, b1=b1, eps=eps))`` over a list of parameters:
   updates when ``end_learning_rate`` is given;
 - a parameter the loss did not reach steps with a zero gradient, as optax
   gives it one: its moments decay and it moves on them, where
-  ``torch.optim.Adam`` would skip it and keep a step count of its own.
+  ``torch.optim.Adam`` would skip it and keep a step count of its own;
+- under ``parallel.collectives.over(mesh)`` the gradients are averaged over
+  the ranks (one all-reduce) before the clip, so the clip sees the global
+  gradient, as the JAX learners' ``pmean`` gives it.
 
 ``state_dict`` / ``load_state_dict`` carry what optax's chain state
 carries: each parameter's Adam moments and step, and ``count``, which is
@@ -20,6 +23,8 @@ if never stopped.
 from typing import Dict, Iterable, List, Optional
 
 import torch
+
+from seed_rl_torch.parallel import collectives
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -86,6 +91,9 @@ class ClippedAdam:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        mesh = collectives.active()
+        if mesh is not None:
+            mesh.average_(grads)
         if self.clip_norm is not None:
             norm = clip_by_global_norm_(grads, self.clip_norm)
         else:

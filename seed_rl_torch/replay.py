@@ -23,6 +23,15 @@ Differences from the JAX package, none of them in the results:
 - ``sample`` draws with ``torch.multinomial`` from the caller's
   ``torch.Generator``, or takes injected ``indices`` (the tests feed the
   JAX draw); the hindsight replay's three draws can be injected too.
+
+On a mesh (``parallel``) the items are sharded by ring slot, as the JAX
+package's ``DistributedLearner`` shards them: rank r stores slots ``[r*S/N,
+(r+1)*S/N)`` and its buffer's leaves are ``[S/N, ...]``. The priorities and
+both cursors are replicated. An insert takes the rank's own new items,
+gathers every rank's (in global env order) and writes those that land in
+the rank's slots; every rank draws the same global indices, and ``sample``
+gathers the sampled items from their owners, so every rank holds the whole
+global batch (and the hindsight replay relabels it with the same draws).
 """
 
 from typing import Any, Callable, NamedTuple, Optional, Tuple
@@ -30,6 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from seed_rl_torch.parallel.mesh import Mesh
 from seed_rl_torch.utils import debug_asserts, tree
 
 
@@ -40,17 +50,32 @@ class ReplayState(NamedTuple):
     num_inserted: int  # items inserted, saturating at size
 
 
+# A rank's share (``parallel/dp.py``): its ring slots of the items; the
+# priorities and cursors are replicated.
+REPLAY_SHARDS = ReplayState(buffer=0, priorities=None, insert_index=None,
+                            num_inserted=None)
+
+
 class PrioritizedReplay:
-    def __init__(self, size: int, importance_sampling_exponent: float):
+    """``size`` items, of which this rank of ``mesh`` stores ``slots``
+    (all of them on one rank, the default)."""
+
+    def __init__(self, size: int, importance_sampling_exponent: float,
+                 mesh=None):
         self.size = size
         self.importance_sampling_exponent = importance_sampling_exponent
+        # The one-rank mesh's collectives are the identity; its device is
+        # never read.
+        self.mesh = mesh if mesh is not None else Mesh(0, 1, "cpu")
+        self.slots = self.mesh.shard(size)
 
     def init_state(self, example_item) -> ReplayState:
         """``example_item``: pytree of one item (no leading batch dim); the
-        buffer is made on the item's device."""
+        buffer (this rank's slots) is made on the item's device."""
+        stored = self.slots.stop - self.slots.start
         buffer = pytree.tree_map(
             lambda x: torch.zeros(
-                (self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device
+                (stored,) + tuple(x.shape), dtype=x.dtype, device=x.device
             ),
             example_item,
         )
@@ -70,8 +95,12 @@ class PrioritizedReplay:
         """FIFO insert of a batch; returns (state, inserted indices).
 
         The ring slots are consecutive, so the write is one slice copy per
-        leaf, or two where the batch wraps around the end.
+        leaf, or two where the batch wraps around the end. ``values`` and
+        ``priorities`` are the rank's own items; the batch is every rank's,
+        in rank order.
         """
+        values = pytree.tree_map(self.mesh.all_gather, values)
+        priorities = self.mesh.all_gather(priorities)
         batch = priorities.shape[0]
         if batch > self.size:
             raise ValueError(
@@ -92,14 +121,22 @@ class PrioritizedReplay:
             spans.append((0, first, batch - first))
         # Sorted dict keys on both sides: a dict built in another key order
         # still lands leaf by leaf.
-        leaves = tree.sorted_leaves(state.buffer) + [state.priorities]
-        new = tree.sorted_leaves(values) + [priorities]
+        leaves = tree.sorted_leaves(state.buffer)
+        new = tree.sorted_leaves(values)
         if len(leaves) != len(new):
             raise ValueError("inserted items do not match the buffer layout")
+        lo, hi = self.slots.start, self.slots.stop
         with torch.no_grad():
             for slot, offset, count in spans:
+                state.priorities[slot:slot + count] = priorities[
+                    offset:offset + count]
+                # The part of the span in this rank's slots.
+                first, last = max(slot, lo), min(slot + count, hi)
+                if first >= last:
+                    continue
+                src = offset + first - slot
                 for leaf, value in zip(leaves, new):
-                    leaf[slot:slot + count] = value[offset:offset + count]
+                    leaf[first - lo:last - lo] = value[src:src + last - first]
         device = state.priorities.device
         indices = (start + torch.arange(batch, device=device)) % self.size
         return ReplayState(
@@ -149,15 +186,43 @@ class PrioritizedReplay:
             ) ** self.importance_sampling_exponent
             weights = weights / torch.max(weights)
         indices = indices.to(device=device, dtype=torch.long)
-        items = pytree.tree_map(lambda b: b[indices], state.buffer)
-        return indices, weights, items
+        return indices, weights, self.gather(state, indices)
+
+    def gather(self, state: ReplayState, indices: torch.Tensor):
+        """The items at global ``indices``: each rank takes those it
+        stores, and every rank gets all of them, in ``indices``' order."""
+        if self.mesh.size == 1:
+            # One rank stores every slot: the masked indexing below has a
+            # data-dependent shape, a host sync this path does not pay.
+            return pytree.tree_map(lambda b: b[indices], state.buffer)
+        lo, hi = self.slots.start, self.slots.stop
+        mine = (indices >= lo) & (indices < hi)
+        local = indices[mine] - lo
+        parts = pytree.tree_map(
+            lambda b: self.mesh.all_gather(b[local]), state.buffer)
+        # The gathered rows are the owners' in rank order, each in batch
+        # order; the owner of a slot is slot // (S/N).
+        owner = torch.div(indices, hi - lo, rounding_mode="floor")
+        order = torch.argsort(owner, stable=True)
+        position = torch.empty_like(order)
+        position[order] = torch.arange(order.numel(), device=order.device)
+        return pytree.tree_map(lambda p: p[position], parts)
 
     def update_priorities(
         self, state: ReplayState, indices: torch.Tensor, priorities
     ) -> ReplayState:
-        """Writes ``priorities`` at ``indices`` (in place)."""
+        """Writes ``priorities`` at ``indices`` (in place). Where an index
+        repeats, its last value wins, on every device: a scatter on the card
+        picks among duplicates in no fixed order, and replicated priorities
+        must be written alike on every rank."""
+        idx = indices.long()
+        order = torch.argsort(idx, stable=True)
+        ordered = idx[order]
+        last = torch.ones_like(ordered, dtype=torch.bool)
+        last[:-1] = ordered[1:] != ordered[:-1]
+        keep = order[last]
         with torch.no_grad():
-            state.priorities[indices.long()] = priorities.to(torch.float32)
+            state.priorities[idx[keep]] = priorities.to(torch.float32)[keep]
         return state
 
 
@@ -188,8 +253,9 @@ class HindsightExperienceReplay(PrioritizedReplay):
         compute_reward_fn: Callable,
         unroll_length: int,
         substitution_probability: float,
+        mesh=None,
     ):
-        super().__init__(size, importance_sampling_exponent)
+        super().__init__(size, importance_sampling_exponent, mesh)
         self.compute_reward_fn = compute_reward_fn
         self.unroll_length = unroll_length
         self.substitution_probability = substitution_probability

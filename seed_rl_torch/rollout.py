@@ -44,6 +44,15 @@ class RolloutState(NamedTuple):
     next_unroll_state: Any  # core state at the next unroll's first timestep
 
 
+# The env axis of every rollout-state field: all of it is per env, so a
+# rank holds its envs' (``parallel/dp.py``).
+ROLLOUT_SHARDS = RolloutState(
+    env_state=0, env_output=0, agent_state=0, prev_action=0,
+    carry_timesteps=1,  # time-major [overlap + 1, B, ...]
+    next_unroll_state=0,
+)
+
+
 def _stack_time(timesteps: List[Timestep]) -> Timestep:
     flat = [pytree.tree_flatten(ts) for ts in timesteps]
     spec = flat[0][1]
@@ -97,6 +106,9 @@ class RolloutEngine:
         self.device = batched_env.device
         self.generator = torch.Generator(device=batched_env.device)
         self.generator.manual_seed(seed)
+        # A rank's actions are its slice of the global draw.
+        self.draws = batched_env.mesh.draws(self.generator,
+                                            batched_env.global_num_envs)
         self._zero_action = zero_action_for_space(
             batched_env.action_space, batched_env.device
         )
@@ -107,7 +119,7 @@ class RolloutEngine:
 
     def _step(self, env_state, env_output, agent_state, prev_action):
         agent_output, agent_state = self.agent.policy_step(
-            prev_action, env_output, agent_state, self.generator,
+            prev_action, env_output, agent_state, self.draws,
             deterministic=self.deterministic,
         )
         timestep = Timestep(

@@ -80,9 +80,19 @@ The remote-actor runtime (``runtime/``, ``remote.py``), on the host envs:
 ``python -m seed_rl_torch.fleet`` starts a learner and its actors on one
 machine.
 
-Other agent/env pairs, ``--agent_module``, observation normalization
-outside V-trace and SAC or on frames, and more than one replica are not
-ported yet and raise ``NotImplementedError`` rather than being ignored.
+Data parallelism (``parallel/``): the four device learners train on
+``--num_replicas`` ranks (default: every local CUDA device; one with
+``--device=cpu``), ``cuda:r`` over NCCL or CPU ranks over gloo. Each rank
+steps its share of ``--num_envs`` and stores its share of the replay; the
+result equals the one-rank run's. This process is rank 0: it alone prints,
+writes the scalars and writes checkpoints (in the one-rank layout, so a
+run resumes on any number of ranks). More than one replica asked for on a
+host env or outside ``--run_mode=train`` raises ``ValueError`` (the JAX
+CLI ignores the flag there), as do more ranks than cards.
+
+Other agent/env pairs, ``--agent_module`` and observation normalization
+outside V-trace and SAC or on frames are not ported yet and raise
+``NotImplementedError`` rather than being ignored.
 Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
 use, this one raises ``ValueError``:
 ``--conv_net=atari``, ``--conv_net=impala_deep`` and ``--remat_torso``
@@ -134,6 +144,7 @@ import functools
 import json
 import math
 import os
+import sys
 import tempfile
 import time
 
@@ -250,8 +261,10 @@ def parse_args(argv=None):
                    help="streaming mean/std observation normalization "
                         "(--agent=vtrace or sac, on the vector envs)")
     p.add_argument("--num_replicas", type=int, default=0,
-                   help="0 = all local devices; more than one is not "
-                        "ported yet")
+                   help="data-parallel ranks of the device learners: 0 = "
+                        "all local CUDA devices (1 with --device=cpu); N > 1 "
+                        "spawns N ranks, cuda:r over NCCL or, with "
+                        "--device=cpu, CPU ranks over gloo")
     p.add_argument("--conv_net", default="auto",
                    choices=["auto", "atari", "impala_deep"],
                    help="conv torso for pixel envs under --agent=vtrace: "
@@ -452,14 +465,42 @@ def _refuse_sac_flags(args):
                 f"an unroll of --unroll_length={args.unroll_length} + 1")
 
 
-def _refuse_replicas(args, device):
+def _refuse_replicas(args):
+    """Only the device learners run sharded: more than one rank asked for
+    on a host env or in the eval, profile, learner or actor modes raises
+    (the JAX CLI ignores the flag there)."""
+    if args.num_replicas < 0:
+        raise ValueError("--num_replicas must be >= 0")
+    if args.num_replicas > 1:
+        if args.env in HOST_ENVS:
+            raise ValueError(f"--num_replicas={args.num_replicas}: the host "
+                             f"env --env={args.env} runs on one device")
+        if args.run_mode != "train":
+            raise ValueError(f"--num_replicas={args.num_replicas}: "
+                             f"--run_mode={args.run_mode} runs on one device")
+
+
+def num_replicas(args, device) -> int:
+    """The data-parallel ranks of a run: ``--num_replicas``, or by default
+    every local CUDA device (one on the CPU, on a host env and outside
+    ``--run_mode=train``). More ranks than cards raise, as do CPU ranks
+    without gloo."""
+    _refuse_replicas(args)
+    if args.env in HOST_ENVS or args.run_mode != "train":
+        return 1
     replicas = args.num_replicas or (
         torch.cuda.device_count() if device.type == "cuda" else 1)
-    if replicas > 1:
-        raise NotImplementedError(
-            f"--num_replicas={args.num_replicas} ({replicas} replicas) is "
-            "not ported to seed_rl_torch yet; pass --num_replicas=1"
-        )
+    if replicas > 1 and device.type == "cuda" and (
+            replicas > torch.cuda.device_count()):
+        raise ValueError(f"--num_replicas={replicas} needs as many CUDA "
+                         f"devices; there are {torch.cuda.device_count()}")
+    if replicas > 1 and device.type == "cpu" and not (
+            torch.distributed.is_available()
+            and torch.distributed.is_gloo_available()):
+        raise ValueError(f"--num_replicas={replicas} with --device=cpu needs "
+                         "torch.distributed's gloo backend, which this torch "
+                         "build lacks")
+    return replicas
 
 
 def _host_env(args, i: int):
@@ -485,9 +526,10 @@ def _host_env(args, i: int):
     return football.create_environment(args.game)
 
 
-def make_env(args, device):
+def make_env(args, device, mesh=None):
     """The env and whether it steps on the host: a ``BatchedEnv`` on
-    ``device``, or a ``HostBatchedEnv`` of ``min(num_envs, 16)`` threads."""
+    ``device`` (this rank's share of it with a ``mesh``), or a
+    ``HostBatchedEnv`` of ``min(num_envs, 16)`` threads."""
     from seed_rl_torch import envs
 
     if args.env in HOST_ENVS:
@@ -503,29 +545,64 @@ def make_env(args, device):
         "catch_continuous": envs.ContinuousCatchEnv,
         "synthetic_atari": envs.SyntheticAtariEnv,
     }[args.env]()
-    return envs.BatchedEnv(env, args.num_envs, device=device, seed=0), False
+    return envs.BatchedEnv(env, args.num_envs, device=device, seed=0,
+                           mesh=mesh), False
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Trains, evaluates, profiles or serves actors (``--run_mode``);
     returns (learner, train state, metrics): the last call's metrics,
-    eval's or profile's. An actor returns the env steps it ran."""
+    eval's or profile's. An actor returns the env steps it ran.
+
+    With more than one replica (``--num_replicas``) the training runs on
+    that many ranks (``parallel.spawn``): this process is rank 0, and main
+    returns its result; the learner is then a ``DistributedLearner``. A
+    caller that has made its own ``mesh`` (a rank of its own process
+    group) passes it, and main runs that rank.
+    """
     args = parse_args(argv)
     _refuse_unported(args)
+    _refuse_replicas(args)
     if args.run_mode == "actor":
         return _run_actor(args)
     device = resolve_device(args.device)
-    _refuse_replicas(args, device)
+    if mesh is None:
+        replicas = num_replicas(args, device)
+        if replicas > 1:
+            from seed_rl_torch import parallel
+
+            threads = (max(1, torch.get_num_threads() // replicas)
+                       if device.type == "cpu" else None)
+            return parallel.spawn(_replica_main, replicas, device,
+                                  args=(list(argv) if argv is not None
+                                        else sys.argv[1:],),
+                                  threads=threads)[0]
+    else:
+        if args.num_replicas not in (0, mesh.size):
+            raise ValueError(f"--num_replicas={args.num_replicas} on a mesh "
+                             f"of {mesh.size}")
+        if device.type != mesh.device.type:
+            raise ValueError(f"--device={args.device or 'cuda'} asks for "
+                             f"{device.type}; this rank of the mesh runs on "
+                             f"{mesh.device}")
+        device = mesh.device
 
     from seed_rl_torch.utils import debug_asserts
 
     debug_asserts.enable(args.debug_asserts)
-    env, host = make_env(args, device)
+    env, host = make_env(args, device, mesh)
     try:
-        return _run(args, env, host, device)
+        return _run(args, env, host, device, mesh)
     finally:
         if host:
             env.close()
+
+
+def _replica_main(mesh, argv):
+    """One rank of ``main``'s spawned run; ranks above 0 return nothing
+    (their learner stays in their process)."""
+    result = main(argv, mesh=mesh)
+    return result if mesh.rank == 0 else None
 
 
 def _optimizer_updates(args, host):
@@ -579,7 +656,7 @@ def _run_actor(args):
                       num_steps=args.num_actor_steps or None,
                       env_id_offset=args.env_id_offset)
 
-def _run(args, env, host, device):
+def _run(args, env, host, device, mesh=None):
     from seed_rl_torch import optim
     from seed_rl_torch.utils.checkpoint import CheckpointManager
     from seed_rl_torch.utils.metrics import MetricsLogger
@@ -600,6 +677,10 @@ def _run(args, env, host, device):
     build = {"r2d2": _r2d2_learner, "ppo": _ppo_learner,
              "sac": _sac_learner, "vtrace": _vtrace_learner}[args.agent]
     learner, loop = build(args, env, host, optimizer, device)
+    if mesh is not None:
+        from seed_rl_torch.parallel import DistributedLearner
+
+        learner = DistributedLearner(learner, mesh)
     checkpoint = CheckpointManager(
         args.logdir,
         save_checkpoint_secs=args.save_checkpoint_secs,
@@ -609,7 +690,10 @@ def _run(args, env, host, device):
         return _eval(args, learner, checkpoint, env, host, device)
     if args.run_mode == "profile":
         return _profile(args, learner)
-    logger = MetricsLogger(args.logdir)
+    # Rank 0 alone prints and writes the scalars; every rank takes the log
+    # branch, whose episode window is a collective.
+    logger = (MetricsLogger(args.logdir) if mesh is None or mesh.rank == 0
+              else MetricsLogger(None, console_every_secs=float("inf")))
     try:
         state, metrics = loop(
             learner,
@@ -892,6 +976,8 @@ def _r2d2_learner(args, env, host, optimizer, device):
         r2d2.training_env_epsilons(num_training, device),
         torch.full((args.num_eval_envs,), config.eval_epsilon, device=device),
     ])
+    if not host:
+        epsilons = epsilons[env.env_ids]  # a rank's envs' (all on one)
     agent = r2d2.R2D2Agent(net, epsilons)
     if args.run_mode == "learner":
         # The remote loop keeps the eval envs' unrolls out by env id, so

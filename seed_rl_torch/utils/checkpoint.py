@@ -21,6 +21,11 @@ dicts keyed by field name (as Orbax stores them), written to a temporary
 name and then moved into place. It loads with ``torch.load(...,
 weights_only=True)``.
 
+Under a mesh (``parallel.DistributedLearner``) the tree is the global state
+in the one-rank layout: rank 0's clock decides when to save, rank 0
+gathers the tree to its CPU one leaf at a time and writes it; on restore
+every rank reads the file to its CPU and takes its share.
+
 Not ported, on purpose: ``keep_period_hours`` (the JAX manager takes it
 and ignores it) and the legacy key renames (no checkpoint of this package
 ever carried flax's ``ImpalaResNetTorso_0`` scope).
@@ -32,6 +37,8 @@ import time
 from typing import Any, Iterable, List, Optional
 
 import torch
+
+from seed_rl_torch.parallel.mesh import Mesh
 
 FILE_NAME = "checkpoint.pt"
 
@@ -78,7 +85,9 @@ def repack(template: Any, saved: Any, path: str = "") -> Any:
         if saved.shape != template.shape or saved.dtype != template.dtype:
             fail(f"saved {saved.dtype}{list(saved.shape)}, this run has "
                  f"{template.dtype}{list(template.shape)}")
-        return saved.to(template.device)
+        # A meta template (a sharded leaf's global layout) leaves the
+        # saved leaf on the CPU for its rank to take its share.
+        return saved if template.is_meta else saved.to(template.device)
     if hasattr(template, "_fields") or isinstance(template, dict):
         keys = template._fields if hasattr(template, "_fields") else (
             list(template))
@@ -107,7 +116,9 @@ def load_into(learner, state, saved: dict, fields: Optional[Iterable[str]]
     """Loads ``saved`` (a tree from ``checkpoint_state``, e.g. as stored)
     into ``learner`` and returns the new train state; ``fields`` limits
     the load to those top-level entries (a warm start)."""
-    template = learner.checkpoint_state(state)
+    # A DistributedLearner's template is its layout: shapes, no gather.
+    template = getattr(learner, "checkpoint_layout",
+                       learner.checkpoint_state)(state)
     if fields is None:
         keys = list(template)
         if set(saved) != set(keys):
@@ -148,6 +159,12 @@ def load_train_state(learner, state, tree: dict):
     return state._replace(**{f: tree[f] for f in state._fields if f in tree})
 
 
+def _mesh(learner) -> Mesh:
+    """The mesh whose ranks save and restore together: the learner's, or
+    (a host learner) one rank's, whose collectives are the identity."""
+    return getattr(learner, "mesh", None) or Mesh(0, 1, "cpu")
+
+
 def _steps(directory: str) -> List[int]:
     """The steps with a complete checkpoint under ``directory``, sorted."""
     if not os.path.isdir(directory):
@@ -157,9 +174,11 @@ def _steps(directory: str) -> List[int]:
                       os.path.join(directory, name, FILE_NAME)))
 
 
-def _load(directory: str, step: int, device) -> dict:
+def _load(directory: str, step: int) -> dict:
+    """The saved tree on the CPU (``repack`` moves each leaf to its
+    template's device)."""
     return torch.load(os.path.join(directory, str(step), FILE_NAME),
-                      map_location=device, weights_only=True)
+                      map_location="cpu", weights_only=True)
 
 
 class CheckpointManager:
@@ -193,14 +212,14 @@ class CheckpointManager:
     def restore_or(self, learner, state):
         """The latest checkpoint loaded into ``learner`` and ``state``;
         else a warm start from ``init_checkpoint``; else ``state``."""
-        step = self.latest_step()
+        step = _mesh(learner).broadcast_object(self.latest_step())
         if step is None:
             if self._init_checkpoint:
                 return restore_from(self._init_checkpoint, learner, state)
             return state
         try:
             restored = load_into(learner, state,
-                                 _load(self._dir, step, learner.device))
+                                 _load(self._dir, step))
         except ValueError as exc:
             raise ValueError(
                 "restore-on-start failed: the checkpoint in the logdir has a "
@@ -219,16 +238,23 @@ class CheckpointManager:
         if self._dir is None:
             return False
         now = time.time()
-        if not force and now - self._last_save < self._save_secs:
+        due = force or now - self._last_save >= self._save_secs
+        # Rank 0's clock decides; rank 0 gathers and writes.
+        mesh = _mesh(learner)
+        due = mesh.broadcast_object(due)
+        if not due:
             return False
-        target = os.path.join(self._dir, str(step))
-        os.makedirs(target, exist_ok=True)
-        path = os.path.join(target, FILE_NAME)
-        torch.save(to_saveable(learner.checkpoint_state(state)),
-                   path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in _steps(self._dir)[:-self._max_to_keep]:
-            shutil.rmtree(os.path.join(self._dir, str(old)))
+        tree = learner.checkpoint_state(state)
+        if mesh.rank == 0:
+            tree = to_saveable(tree)
+            target = os.path.join(self._dir, str(step))
+            os.makedirs(target, exist_ok=True)
+            path = os.path.join(target, FILE_NAME)
+            torch.save(tree, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            for old in _steps(self._dir)[:-self._max_to_keep]:
+                shutil.rmtree(os.path.join(self._dir, str(old)))
+        mesh.barrier()
         self._last_save = now
         return True
 
@@ -247,6 +273,6 @@ def restore_from(path: str, learner, state, warm_start_only: bool = True):
     steps = _steps(directory)
     if not steps:
         raise FileNotFoundError(f"No checkpoint under {path}")
-    saved = _load(directory, steps[-1], learner.device)
+    saved = _load(directory, steps[-1])
     return load_into(learner, state, saved,
                      WARM_START_FIELDS if warm_start_only else None)

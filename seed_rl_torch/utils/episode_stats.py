@@ -2,7 +2,9 @@
 
 Port of ``seed_rl_tpu/utils/episode_stats.py``: per-env return accumulators
 reset on done, and completed episodes reduced to windowed sums without a
-host round-trip per episode.
+host round-trip per episode. On a rank (``parallel``) the accumulators are
+its envs' and the window its envs' episodes; ``window`` adds the ranks'
+sums at log time.
 """
 
 from typing import NamedTuple
@@ -18,6 +20,12 @@ class EpisodeStatsState(NamedTuple):
     num_episodes: torch.Tensor  # f32[]
     sum_return: torch.Tensor  # f32[]
     sum_length: torch.Tensor  # f32[]
+
+
+# A rank's share (``parallel/dp.py``): its envs' accumulators and the
+# partial sums of its envs' episodes.
+SHARDS = EpisodeStatsState(return_acc=0, num_episodes="sum",
+                           sum_return="sum", sum_length="sum")
 
 
 def init(num_envs: int, device=None) -> EpisodeStatsState:
@@ -54,6 +62,15 @@ def update(
         return_acc = torch.where(done, torch.zeros_like(return_acc),
                                  return_acc)
     return EpisodeStatsState(return_acc, num_ep, sum_ret, sum_len)
+
+
+def window(state: EpisodeStatsState, mesh):
+    """(episodes, summed return, summed length) of the window, as host
+    floats. On a rank of ``mesh`` the window holds the rank's envs only,
+    and the sums are added over the ranks (every rank must call this)."""
+    sums = mesh.sum(torch.stack([state.num_episodes, state.sum_return,
+                                 state.sum_length]))
+    return tuple(float(x) for x in sums.tolist())
 
 
 def reset_window(state: EpisodeStatsState) -> EpisodeStatsState:

@@ -108,6 +108,19 @@ def test_port_imports_no_jax_and_nothing_of_seed_rl_tpu():
     assert not offenders, offenders
 
 
+def test_scan_covers_the_parallel_package():
+    """The scale-out package and the data-parallel tests' rank module are
+    held to the rule too (the ranks import that module by name)."""
+    files = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"seed_rl_torch/parallel/__init__.py",
+            "seed_rl_torch/parallel/mesh.py",
+            "seed_rl_torch/parallel/dp.py",
+            "seed_rl_torch/parallel/collectives.py",
+            "seed_rl_torch/parallel/draws.py"} <= files
+    workers = ROOT / "tests" / "torch_dp_workers.py"
+    assert not {root for _, root in _imported_roots(workers)} & FORBIDDEN
+
+
 def test_env_packages_only_inside_the_adapter_functions():
     """gymnasium and the emulators stay off the card's path: never at
     module level, and inside a function only in the adapters that build a

@@ -619,7 +619,10 @@ def test_train_main_ppo_on_cpu(env, flags, mode, net_type):
      NotImplementedError),
     (["--agent=ppo", "--env=toy", "--normalize_observations"],
      NotImplementedError),
-    (["--agent=ppo", "--env=toy", "--num_replicas=2"], NotImplementedError),
+    # Data parallelism is for the device learners (the JAX CLI ignores the
+    # flag on host envs).
+    (["--agent=ppo", "--env=synthetic_atari_host", "--num_replicas=2"],
+     ValueError),
     (["--agent=ppo", "--env=toy", "--run_mode=learner"], NotImplementedError),
 ])
 def test_train_main_ppo_refusals(flags, error):

@@ -490,7 +490,6 @@ def test_train_main_r2d2_on_cpu():
     ["--agent=vtrace", "--env=discrete_match"],
     ["--agent=r2d2", "--env=discrete_match",
      "--agent_module=custom_ppo_composition"],
-    ["--agent=r2d2", "--env=discrete_match", "--num_replicas=2"],
     ["--agent=r2d2", "--env=discrete_match", "--run_mode=actor"],
 ])
 def test_train_main_refuses_what_is_not_ported(flags):

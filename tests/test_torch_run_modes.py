@@ -237,8 +237,10 @@ def test_init_checkpoint_warm_starts_then_resumes_its_own(tmp_path):
      NotImplementedError),
     (["--agent=sac", "--env=toy", "--run_mode=learner"],
      NotImplementedError),
-    (["--agent=r2d2", "--env=discrete_match", "--num_replicas=2"],
-     NotImplementedError),
+    # Data parallelism is for training (the JAX CLI ignores the flag in the
+    # other run modes).
+    (["--agent=r2d2", "--env=discrete_match", "--run_mode=eval",
+      "--num_replicas=2"], ValueError),
     (["--agent=vtrace", "--env=toy", "--num_snapshots=2"], ValueError),
     (["--agent=r2d2", "--env=discrete_match", "--num_checkpoints=1"],
      ValueError),

@@ -304,7 +304,7 @@ def test_train_main_on_cpu(env):
 
 @pytest.mark.parametrize("flag", [
     "--agent=sac", "--run_mode=learner", "--run_mode=actor",
-    "--num_replicas=2", "--agent_module=custom_ppo_composition",
+    "--agent_module=custom_ppo_composition",
     "--normalize_observations",
 ])
 def test_train_main_refuses_what_is_not_ported(flag):
