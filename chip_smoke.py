@@ -195,14 +195,31 @@ Phases, in order; any failure exits non-zero:
      env at phase 5's shape in a one-rank NCCL group: its all-reduce calls
      and NCCL's kernel of the gradient average must appear in the profile
      of a step;
- 18. print the V-trace and n-step launches of each path, and the kernels
+ 18. the port's bench, seed_rl_torch.bench, on the card: each of its
+     seven workloads (bench.py's: PPO on the toy env, visual SAC on
+     continuous Catch, V-trace with GFootball on synthetic Football
+     frames, conv PPO, V-trace with ImpalaDeep on synthetic DmLab frames,
+     V-trace with AtariPolicyNet, R2D2 with DuelingLSTMDQNNet, the torsos
+     in bf16) at bench.py's widths, with one window of one call after the
+     warm-up call, the launch counts reset just before; every line must
+     carry bench.py's metric name in bench.py's order, a finite value > 0,
+     a spread, 0 < mfu <= 1 and a null vs_baseline. One V-trace launch per
+     train step and one n-step launch per insert and per batch; B1 on the
+     first unroll of each V-trace workload and B2 on R2D2's last sampled
+     batch, recorded as the paths ran, against their plain versions within
+     phase 3's limits; and on one batch of frames, the bf16 AtariPolicyNet
+     and DuelingLSTMDQNNet run every convolution and their torso and LSTM
+     matrix products in bf16 (the heads in f32), and their outputs differ
+     from the same nets' in f32 by more than f32 noise and less than a bf16
+     limit;
+ 19. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phases 14's to 17's, the
-     n-step kernel's those of both R2D2 paths and of phases 14's to 17's,
+     those of all three V-trace paths and of phases 14's to 18's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's to 18's,
      with phase 17's shapes on the ranks under "scale_out_shapes".
      The PPO and SAC paths launch neither kernel: the PPO advantage
      estimators are plain PyTorch and SAC has no recursion over time, as
@@ -906,9 +923,17 @@ def check_nstep_on_batch(name, learner, items):
             *r2d2._time_major((items.prev_actions, items.env_outputs,
                                items.agent_outputs)),
             burn_in=config.burn_in)
-    q_kernel, q_plain = (q.clone().requires_grad_(True) for _ in range(2))
     kw = dict(gamma=config.discounting, n_steps=config.n_steps,
               rescaling_eps=config.value_function_rescaling_epsilon)
+    return _check_nstep_batch(name, q, args, kw)
+
+
+def _check_nstep_batch(name, q, args, kw):
+    """The n-step kernel on a batch's loss inputs (online Q ``q``, then the
+    rest of ``loss_inputs``), against the plain version, with the gradient
+    of the summed loss in ``q``; loss and priorities must be finite.
+    Returns max |err|."""
+    q_kernel, q_plain = (q.clone().requires_grad_(True) for _ in range(2))
     err, (loss, pri), (want_loss, _) = _nstep_compare(
         [q_kernel, *args], [q_plain, *args], kw,
         f"{name} on the run's own sampled batch {list(q.shape[:2])}")
@@ -2575,13 +2600,21 @@ def _remote_flags(agent, fleet, envs, unroll, extra=()):
 
 def _check_vtrace_on_unroll(name, learner, unroll):
     from seed_rl_torch.agents import vtrace as vtrace_agent
-    from seed_rl_torch.ops import vtrace as plain
-    from seed_rl_torch.ops.cuda import vtrace_kernel
 
     with torch.no_grad():
         inputs, _ = vtrace_agent.vtrace_inputs(
             learner.config, learner.agent, learner.agent.distribution,
             unroll)
+    return _check_vtrace_inputs(f"{name}: vtrace on the run's last unroll",
+                                inputs)
+
+
+def _check_vtrace_inputs(what, inputs):
+    """The V-trace kernel on keyword ``inputs`` against the plain version;
+    returns max |err|."""
+    from seed_rl_torch.ops import vtrace as plain
+    from seed_rl_torch.ops.cuda import vtrace_kernel
+
     got = vtrace_kernel.from_importance_weights(**inputs)
     ref = plain.from_importance_weights(**inputs)
     torch.cuda.synchronize()
@@ -2589,9 +2622,8 @@ def _check_vtrace_on_unroll(name, learner, unroll):
     for g, w in zip(got, ref):
         torch.testing.assert_close(g, w, rtol=VTRACE_TOL, atol=VTRACE_TOL)
         err = max(err, float((g - w).abs().max()))
-    print(f"{name}: vtrace on the run's last unroll "
-          f"{list(inputs['rewards'].shape)} matches the plain version, "
-          f"max|err|={err:.3e} (tol {VTRACE_TOL})")
+    print(f"{what} {list(inputs['rewards'].shape)} matches the plain "
+          f"version, max|err|={err:.3e} (tol {VTRACE_TOL})")
     return err
 
 
@@ -3395,6 +3427,262 @@ def run_scale_out(smi, device):
         errs["nstep"], shapes
 
 
+# Phase 18: the port's bench. bench.py's metric names, in its main's
+# order, with its tracking flags (the root bench.py is JAX code: this
+# script does not import it). No scaling line on one card.
+BENCH_METRICS = (
+    ("ppo_vector_obs_tracking_fps_per_chip", True),
+    ("sac_visual_catch_env_frames_per_sec_per_chip", True),
+    ("football_vtrace_env_frames_per_sec_per_chip", False),
+    ("ppo_atari_env_frames_per_sec_per_chip", False),
+    ("dmlab_vtrace_env_frames_per_sec_per_chip", False),
+    ("vtrace_atari_env_frames_per_sec_per_chip", False),
+    ("r2d2_atari_env_frames_per_sec_per_chip", False),
+)
+# One V-trace launch per train step: the warm-up call and one call of 1,
+# 1 and 2 steps on Football, DmLab and Atari frames. One n-step launch per
+# insert and per batch: R2D2's warm-up insert (640 unrolls reach the
+# replay's minimum of 8), then 2 steps of an insert and a batch.
+BENCH_VTRACE_LAUNCHES = {"bench_football": 2, "bench_dmlab_vtrace": 2,
+                         "bench_vtrace": 4}
+BENCH_NSTEP_LAUNCHES = 1 + 2 * 2
+BENCH_R2D2_BATCH = 64
+# A bf16 net's outputs against the same net in f32 on one batch: more
+# than f32 noise, less than a bf16 limit (of the f32 output's largest
+# magnitude).
+BENCH_F32_NOISE = 1e-5
+BENCH_BF16_LIMIT = 5e-2
+BENCH_TORSO_BATCH = 64
+
+
+class BenchRecorder:
+    """While phase 18 runs, wraps the two kernels' entry points as the
+    agents call them and keeps, per workload, a copy of the V-trace
+    kernel's first inputs and of the n-step kernel's last inputs at the
+    R2D2 batch's width. The wrapped functions call the wrappers, which
+    count their own launches; nothing here launches a kernel."""
+
+    def __init__(self):
+        self.workload = None
+        self.vtrace = {}
+        self.nstep = {}
+
+    @staticmethod
+    def _copy(args, kwargs):
+        def copy(x):
+            return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+        return [copy(a) for a in args], {k: copy(v) for k, v in
+                                         kwargs.items()}
+
+    def __enter__(self):
+        from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+        self._originals = (vtrace_kernel.from_importance_weights,
+                           nstep_kernel.td_loss_and_priorities_dispatch)
+        vtrace_fn, nstep_fn = self._originals
+
+        def vtrace(*args, **kwargs):
+            if self.workload not in self.vtrace:
+                self.vtrace[self.workload] = self._copy(args, kwargs)
+            return vtrace_fn(*args, **kwargs)
+
+        def nstep(*args, **kwargs):
+            if args[0].shape[1] == BENCH_R2D2_BATCH:
+                self.nstep[self.workload] = self._copy(args, kwargs)
+            return nstep_fn(*args, **kwargs)
+
+        vtrace_kernel.from_importance_weights = vtrace
+        nstep_kernel.td_loss_and_priorities_dispatch = nstep
+        return self
+
+    def __exit__(self, *exc):
+        from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+        (vtrace_kernel.from_importance_weights,
+         nstep_kernel.td_loss_and_priorities_dispatch) = self._originals
+
+
+def _check_bench_line(line, want_metric, want_tracking):
+    if line["metric"] != want_metric:
+        raise RuntimeError(f"bench: line {line['metric']!r} where bench.py "
+                           f"prints {want_metric!r}")
+    if line.get("tracking", False) != want_tracking:
+        raise RuntimeError(f"bench {want_metric}: tracking "
+                           f"{line.get('tracking')}, want {want_tracking}")
+    value, mfu = line["value"], line["mfu"]
+    if not (math.isfinite(value) and value > 0):
+        raise RuntimeError(f"bench {want_metric}: value {value}")
+    if not 0 < mfu <= 1:
+        raise RuntimeError(f"bench {want_metric}: mfu {mfu}")
+    if line["vs_baseline"] is not None or "spread" not in line:
+        raise RuntimeError(f"bench {want_metric}: {line}")
+
+
+def _check_bench_vtrace(name, args, kwargs):
+    """B1 on a workload's own first unroll (f32 inputs from a bf16 net)."""
+    dtypes = {x.dtype for x in kwargs.values()
+              if isinstance(x, torch.Tensor)}
+    if args or dtypes != {torch.float32}:
+        raise RuntimeError(f"bench {name}: V-trace inputs {args}, {dtypes}")
+    return _check_vtrace_inputs(
+        f"bench {name}: vtrace on its own unroll (f32 inputs from a bf16 "
+        "net)", kwargs)
+
+
+def _check_bench_nstep(name, args, kwargs):
+    """B2 on R2D2's own sampled batch (f32 inputs from a bf16 net)."""
+    q, *rest = args
+    if {x.dtype for x in (q, rest[0], rest[3])} != {torch.float32}:
+        raise RuntimeError(f"bench {name}: n-step inputs not f32")
+    return _check_nstep_batch(f"bench {name}", q, rest, kwargs)
+
+
+def check_bf16_torsos(device):
+    """On one batch of frames, the bench's bf16 AtariPolicyNet and
+    DuelingLSTMDQNNet (torso and LSTM in bf16, as bench.py builds them)
+    run every convolution and their torso and LSTM matrix products in
+    bf16 and their heads in f32, and their outputs differ from the same
+    nets' in f32 by more than f32 noise and less than a bf16 limit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from seed_rl_torch.models import AtariPolicyNet, DuelingLSTMDQNNet
+    from seed_rl_torch.types import EnvOutput
+
+    class OpDtypes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("convolution", "addmm", "mm", "bmm"):
+                self.seen.append((name, args[0].dtype if name != "addmm"
+                                  else args[1].dtype))
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    b = BENCH_TORSO_BATCH
+    eo = EnvOutput(
+        reward=torch.randn(b, generator=gen, device=device),
+        done=torch.zeros(b, dtype=torch.bool, device=device),
+        observation=torch.randint(0, 256, (b, 84, 84, 1), generator=gen,
+                                  device=device, dtype=torch.uint8),
+        abandoned=torch.zeros(b, dtype=torch.bool, device=device),
+        episode_step=torch.zeros(b, dtype=torch.int32, device=device))
+    prev = torch.randint(0, 18, (b,), generator=gen, device=device,
+                         dtype=torch.int32)
+    bf16 = torch.bfloat16
+    nets = {
+        # (net, its heads' matrix products, run in f32)
+        "AtariPolicyNet": (lambda **kw: AtariPolicyNet(
+            18, stack_size=4, lstm_size=256, seed=0, device=device, **kw),
+            2),
+        "DuelingLSTMDQNNet": (lambda **kw: DuelingLSTMDQNNet(
+            18, seed=0, device=device, **kw), 4),
+    }
+    for name, (make, head_products) in nets.items():
+        net, net_f32 = make(dtype=bf16, core_dtype=bf16), make()
+        net_f32.load_state_dict(net.state_dict())
+        state = net.initial_state(b)
+        state = state._replace(frame_stacking_state=torch.randint(
+            0, 256, state.frame_stacking_state.shape, generator=gen,
+            device=device, dtype=torch.uint8))
+        with torch.no_grad():
+            with OpDtypes() as ops:
+                out, _ = net(prev, eo, state)
+            out_f32, _ = net_f32(prev, eo, state)
+        torch.cuda.synchronize()
+        convs = [d for op, d in ops.seen if op == "convolution"]
+        products = [d for op, d in ops.seen if op != "convolution"]
+        n_bf16 = sum(d == bf16 for d in products)
+        n_f32 = sum(d == torch.float32 for d in products)
+        # The torso's Dense and the LSTM's two products in bf16.
+        if (len(convs) != 3 or set(convs) != {bf16} or n_bf16 != 3
+                or n_f32 != head_products):
+            raise RuntimeError(f"{name} (bf16): ops {ops.seen}")
+        leaves = [x for x in pytree.tree_leaves(out)
+                  if torch.is_floating_point(x)]
+        leaves_f32 = [x for x in pytree.tree_leaves(out_f32)
+                      if torch.is_floating_point(x)]
+        diff = max(float((a - c).abs().max())
+                   for a, c in zip(leaves, leaves_f32))
+        scale = max(float(c.abs().max()) for c in leaves_f32)
+        if not BENCH_F32_NOISE * scale < diff < BENCH_BF16_LIMIT * scale:
+            raise RuntimeError(
+                f"{name}: bf16 output differs from f32 by {diff:.3e} at "
+                f"scale {scale:.3e}; want within ({BENCH_F32_NOISE}, "
+                f"{BENCH_BF16_LIMIT}) of it")
+        print(f"bench {name} in bf16 on {b} frames: convolutions "
+              f"{len(convs)} in bf16, matrix products {n_bf16} in bf16 "
+              f"(torso Dense, LSTM) and {n_f32} in f32 (heads); outputs "
+              f"differ from the f32 net's by max {diff:.3e} = "
+              f"{diff / scale:.3e} of their scale (limits {BENCH_F32_NOISE}"
+              f", {BENCH_BF16_LIMIT})")
+
+
+def run_bench(smi, device):
+    """Phase 18: seed_rl_torch.bench's workloads on the card, one window of
+    one call each; returns (V-trace launches, n-step launches, max |err|
+    of each kernel on the bench's own data, the bench's lines)."""
+    import contextlib
+    import io
+
+    from seed_rl_torch import bench
+    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+
+    lines, launches = [], {}
+    with BenchRecorder() as recorder:
+        for fn in bench.WORKLOADS:
+            recorder.workload = fn.__name__
+            _reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                line = fn(device, calls=1, windows=1)
+            torch.cuda.synchronize()
+            launches[fn.__name__] = (vtrace_kernel.launches,
+                                     nstep_kernel.launches)
+            if line is None:
+                if out.getvalue():
+                    raise RuntimeError(f"bench {fn.__name__} printed "
+                                       f"{out.getvalue()!r} and no line")
+                print(f"bench {fn.__name__}: no line "
+                      f"({torch.cuda.device_count()} card)")
+                continue
+            if json.loads(out.getvalue()) != line:
+                raise RuntimeError(f"bench {fn.__name__}: printed "
+                                   f"{out.getvalue()!r}, returned {line}")
+            lines.append(line)
+            print(f"bench line: {json.dumps(line)} ({fn.__name__}, "
+                  f"{time.perf_counter() - t0:.1f} s with set-up; launches "
+                  f"vtrace {launches[fn.__name__][0]}, nstep "
+                  f"{launches[fn.__name__][1]}; peak {_peak_memory_gb():.3f}"
+                  f" GB; {smi})")
+    if len(lines) != len(BENCH_METRICS):
+        raise RuntimeError(f"bench: {len(lines)} lines, want "
+                           f"{len(BENCH_METRICS)}")
+    for line, (metric, tracking) in zip(lines, BENCH_METRICS):
+        _check_bench_line(line, metric, tracking)
+    for fn_name, (vtrace_n, nstep_n) in launches.items():
+        want = (BENCH_VTRACE_LAUNCHES.get(fn_name, 0),
+                BENCH_NSTEP_LAUNCHES if fn_name == "bench_r2d2" else 0)
+        if (vtrace_n, nstep_n) != want:
+            raise RuntimeError(f"bench {fn_name}: launches (vtrace, nstep) "
+                               f"{(vtrace_n, nstep_n)}, want {want}")
+    if set(recorder.vtrace) != set(BENCH_VTRACE_LAUNCHES):
+        raise RuntimeError(f"bench: V-trace inputs of {set(recorder.vtrace)}")
+    vtrace_err = max(_check_bench_vtrace(name, *recorded)
+                     for name, recorded in recorder.vtrace.items())
+    nstep_err = _check_bench_nstep("bench_r2d2",
+                                   *recorder.nstep["bench_r2d2"])
+    check_bf16_torsos(device)
+    return (sum(v for v, _ in launches.values()),
+            sum(n for _, n in launches.values()), vtrace_err, nstep_err,
+            lines)
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -3551,6 +3839,12 @@ def main():
     vtrace_err = max(vtrace_err, vtrace_scale_err)
     nstep_err = max(nstep_err, nstep_scale_err)
     print(f"phase 17 (scale-out) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["bench"], nstep_launches["bench"], vtrace_bench_err,
+     nstep_bench_err, _) = run_bench(smi, device)
+    vtrace_err = max(vtrace_err, vtrace_bench_err)
+    nstep_err = max(nstep_err, nstep_bench_err)
+    print(f"phase 18 (the bench) took {time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
           f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "

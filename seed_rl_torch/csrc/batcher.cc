@@ -53,6 +53,8 @@ struct Batch {
   bool queued = false;              // full (or flushed) and awaiting runner
   bool completed = false;           // results written by the runner
   bool failed = false;              // runner reported a handler error
+  bool taken = false;               // handed to a runner, not yet recycled
+  bool held = false;                // test hook: waiters wait to recycle
 };
 
 }  // namespace
@@ -68,7 +70,9 @@ struct Batcher {
   std::condition_variable runner_cv;   // batch ready to run
   std::vector<Batch> buffers;
   size_t fill_index = 0;   // buffer currently accepting submissions
-  size_t run_index = 0;    // next buffer to hand to a runner
+  // Generations grow in fill order: a buffer takes a new one each time it
+  // becomes the filling buffer, and the runner takes the queued batch of
+  // the smallest.
   uint64_t next_generation = 1;
   bool shutdown = false;
 
@@ -158,6 +162,7 @@ int batcher_submit(Batcher* b, int64_t env_id, const char* request,
     std::memcpy(result_out, cur->result_data.data() + slot * b->result_bytes,
                 b->result_bytes);
   }
+  while (cur->held && !b->shutdown) b->submit_cv.wait(lock);
   cur->done_waiters++;
   if (cur->done_waiters == cur->fill) {
     // Last waiter recycles the buffer.
@@ -166,9 +171,11 @@ int batcher_submit(Batcher* b, int64_t env_id, const char* request,
     cur->queued = false;
     cur->completed = false;
     cur->failed = false;
+    cur->taken = false;
     Batch* fb = &b->buffers[b->fill_index];
-    if (fb->queued || fb->completed) {
-      // The filling pointer was stuck on a busy buffer; take over.
+    if (fb == cur || fb->queued || fb->completed) {
+      // The filling pointer is on this buffer, or stuck on a busy one
+      // (take over): either way this buffer fills next, as a new batch.
       cur->generation = b->next_generation++;
       b->fill_index = buffer_idx;
     }
@@ -177,8 +184,22 @@ int batcher_submit(Batcher* b, int64_t env_id, const char* request,
   return failed ? 2 : 0;
 }
 
+// Test hook: while `hold` is set, the waiters of buffer `buffer` keep
+// their results and do not recycle the buffer (a batch's callers slow to
+// take the lock back). Clearing it releases them. Returns 1 for a buffer
+// index out of range.
+int batcher_test_hold(Batcher* b, size_t buffer, int hold) {
+  std::unique_lock<std::mutex> lock(b->mu);
+  if (buffer >= b->num_buffers) return 1;
+  b->buffers[buffer].held = hold != 0;
+  b->submit_cv.notify_all();
+  return 0;
+}
+
 // Runner side: wait for a queued batch (or flush a partial one after
-// flush_timeout_ms; pass -1 to wait for full batches only). On success
+// flush_timeout_ms; pass -1 to wait for full batches only). Queued batches
+// are handed out in fill order, oldest first, whichever buffers they are
+// in; the partial batch flushed is the filling buffer's. On success
 // returns 0 and sets *request_data / *env_ids / *count / *ticket.
 // Returns 1 on shutdown, 2 on timeout with nothing to run.
 int batcher_get_batch(Batcher* b, char** request_data, int64_t** env_ids,
@@ -190,20 +211,28 @@ int batcher_get_batch(Batcher* b, char** request_data, int64_t** env_ids,
                       flush_timeout_ms < 0 ? 3600 * 1000 : flush_timeout_ms);
   while (true) {
     if (b->shutdown) return 1;
-    Batch* batch = &b->buffers[b->run_index];
-    if (batch->queued && !batch->completed) {
+    size_t oldest = b->num_buffers;
+    for (size_t i = 0; i < b->num_buffers; ++i) {
+      const Batch& c = b->buffers[i];
+      if (c.queued && !c.completed && !c.taken &&
+          (oldest == b->num_buffers ||
+           c.generation < b->buffers[oldest].generation))
+        oldest = i;
+    }
+    if (oldest < b->num_buffers) {
+      Batch* batch = &b->buffers[oldest];
+      batch->taken = true;
       *request_data = batch->request_data.data();
       *env_ids = batch->env_ids.data();
       *count = batch->fill;
-      *ticket = b->run_index;
-      b->run_index = (b->run_index + 1) % b->num_buffers;
+      *ticket = oldest;
       b->total_batches.fetch_add(1, std::memory_order_relaxed);
       return 0;
     }
     if (b->runner_cv.wait_until(lock, deadline) ==
         std::cv_status::timeout) {
-      if (flush_timeout_ms >= 0 && batch == &b->buffers[b->fill_index] &&
-          batch->fill > 0 && !batch->queued) {
+      Batch* batch = &b->buffers[b->fill_index];
+      if (flush_timeout_ms >= 0 && batch->fill > 0 && !batch->queued) {
         // Flush the partial batch.
         batch->queued = true;
         size_t next = (b->fill_index + 1) % b->num_buffers;

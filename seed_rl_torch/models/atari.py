@@ -21,6 +21,12 @@ the Dense layer; flattening the channels_last output in that order is a
 view, so the Dense weight is flax's kernel transposed, with no permutation
 in the converter and no transpose in the step.
 
+Compute dtypes are the JAX package's: ``dtype`` is the torso's (its convs
+and Dense cast their input, kernel and bias to it, see ``models/core.py``;
+the frames are cast, then scaled by 1/255; the torso returns f32),
+``core_dtype`` the LSTM gates' (the carry and the core's output stay f32);
+the heads compute in f32.
+
 Like the JAX package's time-major path, ``unroll`` folds the torso and the
 heads over T*B and steps only the LSTM cell over time; it computes what
 stepping ``forward`` computes. Parameters are drawn on the CPU from a
@@ -36,7 +42,9 @@ from seed_rl_torch.device import resolve_device
 from seed_rl_torch.models.core import (
     LSTMStack,
     conv,
+    conv_apply,
     dense,
+    dense_apply,
     lstm_initial_state,
     reset_state_where_done,
 )
@@ -47,10 +55,12 @@ from seed_rl_torch.models.policy import _generator
 _CONV_STACK = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 
 
-def nchw_frames(frames: torch.Tensor) -> torch.Tensor:
-    """uint8 ``[N, H, W, C]`` frames as f32 ``[N, C, H, W]`` in [0, 1], laid
-    out channels_last (the NHWC memory, viewed NCHW)."""
-    return frames.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+def nchw_frames(frames: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 ``[N, H, W, C]`` frames as ``dtype`` ``[N, C, H, W]`` in [0, 1]
+    (cast, then divided by 255 in ``dtype``), laid out channels_last (the
+    NHWC memory, viewed NCHW)."""
+    return frames.permute(0, 3, 1, 2).to(dtype) / 255.0
 
 
 def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
@@ -60,11 +70,14 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class AtariConvTorso(nn.Module):
-    """Nature-DQN conv stack + Dense(512). Input: uint8 ``[N, H, W, C]``."""
+    """Nature-DQN conv stack + Dense(512), computing in ``dtype``. Input:
+    uint8 ``[N, H, W, C]``; output f32."""
 
     def __init__(self, in_channels: int, frame_shape: Tuple[int, int],
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         layers = []
         h, w = frame_shape
         for features, kernel, stride in _CONV_STACK:
@@ -79,10 +92,11 @@ class AtariConvTorso(nn.Module):
         self.dense = dense(in_channels * h * w, 512, generator)
 
     def forward(self, frames):
-        x = nchw_frames(frames)
+        x = nchw_frames(frames, self.dtype)
         for layer in self.convs:
-            x = torch.relu(layer(x))
-        return torch.relu(self.dense(flatten_hwc(x)))
+            x = torch.relu(conv_apply(layer, x, self.dtype))
+        x = torch.relu(dense_apply(self.dense, flatten_hwc(x), self.dtype))
+        return x.to(torch.float32)
 
 
 def initial_frame_stacking_state(
@@ -174,6 +188,8 @@ class AtariPolicyNet(nn.Module):
         frame_shape: Tuple[int, int] = (84, 84),
         stack_size: int = 4,
         lstm_size: int = 0,  # 0 = feed-forward
+        dtype: torch.dtype = torch.float32,
+        core_dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -183,9 +199,10 @@ class AtariPolicyNet(nn.Module):
         self.frame_shape = tuple(frame_shape)
         self.stack_size = stack_size
         self.lstm_size = lstm_size
-        self.torso = AtariConvTorso(stack_size, frame_shape, generator)
+        self.torso = AtariConvTorso(stack_size, frame_shape, generator,
+                                    dtype)
         if lstm_size:
-            self.core = LSTMStack(512, (lstm_size,), generator)
+            self.core = LSTMStack(512, (lstm_size,), generator, core_dtype)
         head_size = lstm_size or 512
         self.policy_logits = dense(
             head_size, parametric_distribution_param_size, generator)
@@ -261,6 +278,8 @@ class DuelingLSTMDQNNet(DuelingQHeads, nn.Module):
         frame_shape: Tuple[int, int] = (84, 84),
         stack_size: int = 4,
         lstm_size: int = 512,
+        dtype: torch.dtype = torch.float32,
+        core_dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -270,8 +289,10 @@ class DuelingLSTMDQNNet(DuelingQHeads, nn.Module):
         self.frame_shape = tuple(frame_shape)
         self.stack_size = stack_size
         self.lstm_size = lstm_size
-        self.torso = AtariConvTorso(stack_size, frame_shape, generator)
-        self.core = LSTMStack(512 + 1 + num_actions, (lstm_size,), generator)
+        self.torso = AtariConvTorso(stack_size, frame_shape, generator,
+                                    dtype)
+        self.core = LSTMStack(512 + 1 + num_actions, (lstm_size,), generator,
+                              core_dtype)
         self._init_heads(lstm_size, 512, num_actions, generator)
         self.to(device)
 

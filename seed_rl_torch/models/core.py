@@ -9,6 +9,13 @@ The LSTM reset semantics match the JAX package: where ``done`` is set at a
 timestep the core state is reset to the initial (zero) state *before* that
 step's core update, because the post-done observation is the first of the
 next episode. The carry of each cell is ``(c, h)``, flax's order.
+
+Compute dtypes are flax's: parameters stay f32 and a layer with a compute
+``dtype`` casts its input, kernel and bias to it at use (flax's
+``promote_dtype``), so its output is in that dtype (``dense_apply`` /
+``conv_apply``). ``None`` takes the promoted dtype of the input and the
+parameters, flax's default. The f32 default computes what an uncast layer
+computes.
 """
 
 import math
@@ -16,6 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import torch.utils._pytree as pytree
 
 # Standard deviation of a standard normal truncated to [-2, 2]; flax's
@@ -54,6 +62,21 @@ def conv(in_channels: int, out_channels: int, kernel: int, stride: int,
     return layer
 
 
+def dense_apply(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``layer(x)`` with the input, kernel and bias cast to ``dtype``
+    (flax ``nn.Dense(dtype=...)``); ``None`` promotes, as flax does."""
+    dtype = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def conv_apply(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``layer(x)`` with the input, kernel and bias cast to ``dtype``
+    (flax ``nn.Conv(dtype=...)``)."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype), layer.stride, layer.padding)
+
+
 def lstm_initial_state(
     lstm_sizes: Sequence[int], batch_size: int, device=None,
     dtype=torch.float32,
@@ -79,10 +102,12 @@ def reset_state_where_done(done, state, initial_state):
 
 
 class MLPTorso(nn.Module):
-    """Plain MLP (ReLU by default), one ``dense`` layer per size."""
+    """Plain MLP (ReLU by default), one ``dense`` layer per size, computing
+    in ``dtype``; the output stays in it, as in the JAX package."""
 
     def __init__(self, input_size: int, layer_sizes: Sequence[int],
-                 activation: str, generator: torch.Generator):
+                 activation: str, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         sizes = [input_size] + list(layer_sizes)
         self.layers = nn.ModuleList(
@@ -90,11 +115,12 @@ class MLPTorso(nn.Module):
         )
         self.activation = getattr(torch, activation)
         self.output_size = sizes[-1]
+        self.dtype = dtype
 
     def forward(self, x):
-        x = x.to(torch.float32)
+        x = x.to(self.dtype)
         for layer in self.layers:
-            x = self.activation(layer(x))
+            x = self.activation(dense_apply(layer, x, self.dtype))
         return x
 
 
@@ -104,12 +130,18 @@ class LSTMCell(nn.Module):
     ``weight_ih`` [4H, in] and ``weight_hh`` [4H, H] stack the gates in the
     order i, f, g, o; ``bias`` [4H] is the hidden-side bias (flax's input
     kernels have none).
+
+    ``dtype`` is the gates' compute dtype (``None``: promoted from the
+    input and the parameters, flax's default). As in flax, the cell state
+    update ``f * c + i * g`` promotes with the carry's dtype, so an f32
+    carry stays f32 under bf16 gates, and so does the output.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype=None):
         super().__init__()
         self.hidden_size = hidden_size
+        self.dtype = dtype
         self.weight_ih = nn.Parameter(torch.empty(4 * hidden_size, input_size))
         self.weight_hh = nn.Parameter(
             torch.empty(4 * hidden_size, hidden_size)
@@ -124,9 +156,12 @@ class LSTMCell(nn.Module):
     def forward(self, carry, x) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
                                          torch.Tensor]:
         c, h = carry
+        dtype = self.dtype or torch.promote_types(x.dtype,
+                                                  self.weight_ih.dtype)
         gates = (
-            nn.functional.linear(h, self.weight_hh, self.bias)
-            + nn.functional.linear(x, self.weight_ih)
+            F.linear(h.to(dtype), self.weight_hh.to(dtype),
+                     self.bias.to(dtype))
+            + F.linear(x.to(dtype), self.weight_ih.to(dtype))
         )
         i, f, g, o = torch.chunk(gates, 4, dim=-1)
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -135,15 +170,18 @@ class LSTMCell(nn.Module):
 
 
 class LSTMStack(nn.Module):
-    """Stacked LSTM cells, single step, with done-masked state reset."""
+    """Stacked LSTM cells, single step, with done-masked state reset. The
+    reset state takes the input's dtype, as in the JAX package; ``dtype``
+    is each cell's compute dtype."""
 
     def __init__(self, input_size: int, lstm_sizes: Sequence[int],
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype=None):
         super().__init__()
         self.lstm_sizes = tuple(lstm_sizes)
         sizes = [input_size] + list(lstm_sizes)
         self.cells = nn.ModuleList(
-            LSTMCell(a, b, generator) for a, b in zip(sizes[:-1], sizes[1:])
+            LSTMCell(a, b, generator, dtype)
+            for a, b in zip(sizes[:-1], sizes[1:])
         )
 
     def forward(self, inputs, core_state, done):

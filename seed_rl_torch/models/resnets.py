@@ -15,6 +15,11 @@ JAX package's (H, W, C) order (see ``models/atari.py``). A 3x3 SAME conv at
 stride 1 is a symmetric pad of 1; the pool's SAME padding can be
 asymmetric and lives in ``ops/pooling.py``.
 
+``dtype`` is the torso's compute dtype, as in the JAX package: every conv
+and the Dense cast their input, kernel and bias to it (``models/core.py``),
+the pool and the residual sums run in it, and the torso returns f32; the
+LSTM and the heads compute in f32.
+
 ``remat=True`` recomputes the torso in the backward pass
 (``torch.utils.checkpoint``) with the same parameters, trading a second
 torso forward for not storing its activations.
@@ -38,7 +43,9 @@ from seed_rl_torch.models.atari import flatten_hwc, nchw_frames
 from seed_rl_torch.models.core import (
     LSTMStack,
     conv,
+    conv_apply,
     dense,
+    dense_apply,
     lstm_initial_state,
 )
 from seed_rl_torch.models.policy import _generator
@@ -46,11 +53,14 @@ from seed_rl_torch.ops.pooling import max_pool_same
 
 
 class ResidualStack(nn.Module):
-    """Conv + max-pool downscale followed by residual conv blocks."""
+    """Conv + max-pool downscale followed by residual conv blocks, computing
+    in ``dtype``."""
 
     def __init__(self, in_channels: int, num_ch: int, num_blocks: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = conv(in_channels, num_ch, 3, 1, 1, generator)
         self.blocks = nn.ModuleList(
             nn.ModuleList(conv(num_ch, num_ch, 3, 1, 1, generator)
@@ -59,14 +69,17 @@ class ResidualStack(nn.Module):
         )
 
     def forward(self, x):
-        x = max_pool_same(self.conv(x), (3, 3), (2, 2))
+        x = max_pool_same(conv_apply(self.conv, x, self.dtype), (3, 3),
+                          (2, 2))
         for conv0, conv1 in self.blocks:
-            x = x + conv1(torch.relu(conv0(torch.relu(x))))
+            y = conv_apply(conv0, torch.relu(x), self.dtype)
+            x = x + conv_apply(conv1, torch.relu(y), self.dtype)
         return x
 
 
 class ImpalaResNetTorso(nn.Module):
-    """Residual stacks + ReLU + Dense. Input: uint8 ``[N, H, W, C]``."""
+    """Residual stacks + ReLU + Dense, computing in ``dtype``. Input: uint8
+    ``[N, H, W, C]``; output f32."""
 
     def __init__(
         self,
@@ -74,24 +87,27 @@ class ImpalaResNetTorso(nn.Module):
         generator: torch.Generator,
         stack_config: Sequence[Tuple[int, int]] = ((16, 2), (32, 2), (32, 2)),
         out_features: int = 256,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         h, w, channels = observation_shape
         stacks = []
         for num_ch, num_blocks in stack_config:
             stacks.append(
-                ResidualStack(channels, num_ch, num_blocks, generator))
+                ResidualStack(channels, num_ch, num_blocks, generator, dtype))
             channels = num_ch
             h, w = -(-h // 2), -(-w // 2)  # a SAME pool at stride 2: ceil
         self.stacks = nn.ModuleList(stacks)
         self.dense = dense(channels * h * w, out_features, generator)
 
     def forward(self, frames):
-        x = nchw_frames(frames)
+        x = nchw_frames(frames, self.dtype)
         for stack in self.stacks:
             x = stack(x)
         x = flatten_hwc(torch.relu(x))
-        return torch.relu(self.dense(x))
+        return torch.relu(dense_apply(self.dense, x, self.dtype)).to(
+            torch.float32)
 
 
 class ImpalaDeep(nn.Module):
@@ -111,6 +127,7 @@ class ImpalaDeep(nn.Module):
         observation_shape: Tuple[int, int, int],
         lstm_size: int = 256,
         remat: bool = False,
+        dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -120,7 +137,8 @@ class ImpalaDeep(nn.Module):
         self.num_actions = num_actions
         self.lstm_size = lstm_size
         self.remat = remat
-        self.torso = ImpalaResNetTorso(tuple(observation_shape), generator)
+        self.torso = ImpalaResNetTorso(tuple(observation_shape), generator,
+                                       dtype=dtype)
         core_input = self.torso.dense.out_features + 1 + num_actions
         self.lstm = LSTMStack(core_input, (lstm_size,), generator)
         self.policy_logits = dense(lstm_size, num_actions, generator)
@@ -181,6 +199,7 @@ class GFootball(nn.Module):
         parametric_distribution_param_size: int,
         observation_shape: Tuple[int, int, int],
         unpack_input_bits: bool = True,
+        dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -193,7 +212,7 @@ class GFootball(nn.Module):
             channels *= 16
         self.torso = ImpalaResNetTorso(
             (h, w, channels), generator,
-            stack_config=((16, 2), (32, 2), (32, 2), (32, 2)))
+            stack_config=((16, 2), (32, 2), (32, 2), (32, 2)), dtype=dtype)
         out = self.torso.dense.out_features
         self.policy_logits = dense(out, parametric_distribution_param_size,
                                    generator)

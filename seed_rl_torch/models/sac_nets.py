@@ -158,7 +158,8 @@ class ActorCriticMLP(_Heads):
 
 class VisualActorCritic(_Heads):
     """Shared Nature-DQN torso over uint8 ``[..., H, W, C]`` frames and MLP
-    heads; the Q heads concatenate the action with the embedding."""
+    heads; the Q heads concatenate the action with the embedding. The torso
+    computes in ``conv_dtype`` and returns f32; the heads compute in f32."""
 
     def __init__(
         self,
@@ -167,6 +168,7 @@ class VisualActorCritic(_Heads):
         n_critics: int = 2,
         head_sizes: Sequence[int] = (256,),
         action_dim: Optional[int] = None,
+        conv_dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -174,7 +176,7 @@ class VisualActorCritic(_Heads):
         device = resolve_device(device)
         generator = _generator(seed)
         h, w, channels = observation_spec.shape
-        self.torso = AtariConvTorso(channels, (h, w), generator)
+        self.torso = AtariConvTorso(channels, (h, w), generator, conv_dtype)
         self._init_heads(self.torso.dense.out_features,
                          parametric_distribution_param_size, n_critics,
                          head_sizes, action_dim, generator)

@@ -2,7 +2,8 @@
 
 Each ``seed_rl_torch/csrc/<name>.cu`` exposes a plain C function and is
 compiled on its own into ``build/kernels/<name>-<hash>.so`` at the root of
-the checkout (a directory ``.gitignore`` lists), the first time a kernel is
+the checkout (a directory ``.gitignore`` lists; ``SEED_RL_TORCH_BUILD_DIR``
+moves it, see ``utils/compilation_cache.py``), the first time a kernel is
 needed. The hash covers the source and the flags, so an edited source is
 rebuilt. Several sources compile in parallel, one ``nvcc`` each.
 
@@ -17,9 +18,12 @@ import pathlib
 import shutil
 import subprocess
 
+from seed_rl_torch.utils import compilation_cache
+
 _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = _PACKAGE / "csrc"
-BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
+# The default build directory; ``SEED_RL_TORCH_BUILD_DIR`` moves it.
+BUILD_DIR = compilation_cache.DEFAULT_DIR / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,7 +54,7 @@ def library_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return compilation_cache.build_dir("kernels") / f"{name}-{digest}.so"
 
 
 def build(names) -> None:
@@ -58,7 +62,6 @@ def build(names) -> None:
     pending = [n for n in names if not library_path(n).exists()]
     if not pending:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     for name in pending:

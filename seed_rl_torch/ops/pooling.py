@@ -13,6 +13,10 @@ custom backward and of XLA's SelectAndScatter, so the port needs no
 ``custom_pool_bwd`` switch: the JAX package's two settings give the same
 values, and both are held against this one in the tests.
 
+The pool runs in its input's dtype (bf16 under a bf16 torso): -inf pads
+and ``max_pool2d``'s comparisons are exact in any floating dtype, so the
+values and the tie rule are the same as in f32.
+
 Unlike the JAX package, which checks ``window <= 2 * stride`` only in its
 backward, every window/stride pair is taken here: the backward does not
 depend on it.

@@ -477,6 +477,13 @@ class EpisodeReporter:
         self.env.close()
 
 
+# A pool thread's connection is made after the actor's first one, so the
+# learner was up; one that cannot connect within this long found it gone.
+# Every exit of the actor loop joins its pool, so this bounds how long a
+# stopping actor waits for such a thread, not the first connection's wait.
+POOL_CONNECT_TIMEOUT_S = 10.0
+
+
 def run_actor(
     create_env_fn,
     server_address: str,
@@ -524,7 +531,8 @@ def run_actor(
                 # Concurrent per-env calls need one connection per pool
                 # thread (a SocketClient serves one call at a time).
                 client_factory=lambda: RemoteActorClient(
-                    server_address, connect_timeout=connect_timeout))
+                    server_address, connect_timeout=min(
+                        connect_timeout, POOL_CONNECT_TIMEOUT_S)))
             return steps_done
         except (RuntimeError, OSError):
             reconnects += 1

@@ -16,7 +16,9 @@ same bytes.
 
 ``batcher.cc`` is host code: it is built with g++ at first use into
 ``build/batcher/`` at the root of the checkout (a directory ``.gitignore``
-lists), as ``ops/cuda/build.py`` builds the CUDA kernels. A failed build
+lists; ``SEED_RL_TORCH_BUILD_DIR`` moves it, see
+``utils/compilation_cache.py``), as ``ops/cuda/build.py`` builds the CUDA
+kernels. A failed build
 raises; there is no Python batcher to fall back to.
 """
 
@@ -33,10 +35,12 @@ from typing import Callable, Sequence
 import numpy as np
 
 from seed_rl_torch.runtime import specs as specs_lib
+from seed_rl_torch.utils import compilation_cache
 
 _PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = _PACKAGE / "csrc" / "batcher.cc"
-BUILD_DIR = _PACKAGE.parent / "build" / "batcher"
+# The default build directory; ``SEED_RL_TORCH_BUILD_DIR`` moves it.
+BUILD_DIR = compilation_cache.DEFAULT_DIR / "batcher"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _LIB = None
@@ -46,7 +50,7 @@ _LIB_LOCK = threading.Lock()
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libbatcher-{digest}.so"
+    return compilation_cache.build_dir("batcher") / f"libbatcher-{digest}.so"
 
 
 def build() -> pathlib.Path:
@@ -54,7 +58,6 @@ def build() -> pathlib.Path:
     target = library_path()
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     result = subprocess.run(
         ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
@@ -96,6 +99,9 @@ def _build_and_load():
         lib.batcher_fail_batch.restype = ctypes.c_int
         lib.batcher_fail_batch.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
         lib.batcher_shutdown.argtypes = [ctypes.c_void_p]
+        lib.batcher_test_hold.restype = ctypes.c_int
+        lib.batcher_test_hold.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
         lib.batcher_total_requests.restype = ctypes.c_uint64
         lib.batcher_total_requests.argtypes = [ctypes.c_void_p]
         lib.batcher_total_batches.restype = ctypes.c_uint64

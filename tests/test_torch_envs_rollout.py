@@ -225,3 +225,22 @@ def test_zero_action_matches_jax_for_spaces():
         assert tuple(got.shape) == want.shape, space
         assert str(got.dtype).split(".")[-1] == str(want.dtype), space
         assert (got == 0).all()
+
+
+def test_auto_reset_selects_uint16_frames_bit_for_bit():
+    """The synthetic Football env's uint16 frames go through the reset
+    select by their int16 view (torch.where has no CUDA kernel for uint16):
+    every bit pattern survives, the top bit included."""
+    from seed_rl_torch.envs import core
+
+    rng = np.random.RandomState(0)
+    a = rng.randint(0, 2 ** 16, (5, 3, 2)).astype(np.uint16)
+    b = rng.randint(0, 2 ** 16, (5, 3, 2)).astype(np.uint16)
+    a[0, 0, 0], b[1, 0, 0] = 0xFFFF, 0x8000
+    pred = np.array([True, False, True, False, False])
+    got = core._tree_where(torch.from_numpy(pred),
+                           {"f": torch.from_numpy(a)},
+                           {"f": torch.from_numpy(b)})["f"]
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.where(pred[:, None, None], a, b))

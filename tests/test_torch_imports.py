@@ -121,6 +121,18 @@ def test_scan_covers_the_parallel_package():
     assert not {root for _, root in _imported_roots(workers)} & FORBIDDEN
 
 
+def test_scan_covers_the_bench_and_its_utils():
+    """The port's bench and the modules it brought in are held to the rule:
+    no JAX, nothing of seed_rl_tpu (not even its plain-Python flops.py)."""
+    files = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    new = {"seed_rl_torch/bench.py", "seed_rl_torch/utils/flops.py",
+           "seed_rl_torch/utils/compilation_cache.py"}
+    assert new <= files
+    for name in new:
+        roots = {root for _, root in _imported_roots(ROOT / name)}
+        assert not roots & FORBIDDEN, name
+
+
 def test_env_packages_only_inside_the_adapter_functions():
     """gymnasium and the emulators stay off the card's path: never at
     module level, and inside a function only in the adapters that build a

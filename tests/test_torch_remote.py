@@ -489,6 +489,36 @@ def _learner_stats(monkeypatch):
     return made
 
 
+def test_pool_threads_connect_within_a_bounded_timeout(monkeypatch):
+    """The actor's first client waits connect_timeout for the learner; a
+    pool thread's client, made once the learner was up, waits at most
+    POOL_CONNECT_TIMEOUT_S: a learner gone by then must not hold a stopping
+    actor, whose loop joins its pool, for the whole connect_timeout."""
+    from seed_rl_torch.runtime import actor, transport
+
+    timeouts = []
+
+    class Client:
+        def __init__(self, address, connect_timeout):
+            timeouts.append(connect_timeout)
+
+        def close(self):
+            pass
+
+    def loop(create_env_fn, client, client_factory, **kwargs):
+        client_factory()
+        return 1
+
+    monkeypatch.setattr(transport, "RemoteActorClient", Client)
+    monkeypatch.setattr(actor, "actor_loop", loop)
+    assert remote.run_actor(None, "unused", connect_timeout=120.0) == 1
+    assert timeouts == [120.0, remote.POOL_CONNECT_TIMEOUT_S]
+    assert remote.POOL_CONNECT_TIMEOUT_S <= 10.0
+    timeouts.clear()
+    remote.run_actor(None, "unused", connect_timeout=0.2)
+    assert timeouts == [0.2, 0.2]
+
+
 @pytest.mark.parametrize("agent", ["vtrace", "ppo", "r2d2", "sac"])
 def test_cli_learner_and_actor_processes(agent, monkeypatch):
     path = sock_path()

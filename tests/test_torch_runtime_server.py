@@ -317,3 +317,43 @@ def test_sustained_throughput_multiple_rounds():
         assert server.stats["total_requests"] == n_threads * rounds
     finally:
         server.shutdown()
+
+
+@pytest.mark.parametrize("requests", [1, 2])
+def test_batch_after_a_late_recycle_is_run(requests):
+    """C5: batch A's callers recycle A only after batch B has filled, run
+    and been recycled (held by the batcher's test hook). The filling buffer
+    is then B again while A, the next in ring order, is empty. A partial
+    batch in B must still be flushed (requests=1) and a full one run
+    (requests=2); a runner that waited on A alone stranded both."""
+    server = _make_server(2, flush_timeout_ms=50)
+    lib, handle = server._lib, server._handle
+    results = {}
+
+    def worker(i):
+        results[i] = server.inference(i, np.array([i, i], np.float32))
+
+    def start(ids):
+        threads = [threading.Thread(target=worker, args=(i,)) for i in ids]
+        for t in threads:
+            t.start()
+        return threads
+
+    try:
+        assert lib.batcher_test_hold(handle, 0, 1) == 0
+        batch_a = start([0, 1])
+        deadline = time.time() + JOIN_S
+        while server.stats["total_batches"] < 1 and time.time() < deadline:
+            time.sleep(0.01)
+        assert server.stats["total_batches"] == 1
+        _join(start([2, 3]))  # batch B: filled, run and recycled
+        assert all(t.is_alive() for t in batch_a)  # A's callers still held
+        assert lib.batcher_test_hold(handle, 0, 0) == 0
+        _join(batch_a)
+        _join(start(range(4, 4 + requests)), timeout=5)
+        assert sorted(results) == list(range(4 + requests))
+        for i, res in results.items():
+            np.testing.assert_allclose(res, [2.0 * i, 2.0 * i])
+        assert server.stats["total_batches"] == 3
+    finally:
+        server.shutdown()
