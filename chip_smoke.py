@@ -212,14 +212,39 @@ Phases, in order; any failure exits non-zero:
      matrix products in bf16 (the heads in f32), and their outputs differ
      from the same nets' in f32 by more than f32 noise and less than a bf16
      limit;
- 19. print the V-trace and n-step launches of each path, and the kernels
+ 19. the CLI's last branches and the port's tooling, each through
+     seed_rl_torch.train.main (or the tool's own main) on the card, f32, at
+     full width, printing each path's seconds, step ms and peak GB:
+     (a) PPO on the toy env with --agent_module=seed_rl_torch/examples/
+         custom_ppo_composition.py at phase 10's knobs, 1 step: the
+         composed 3x128 ContinuousControlNet, a finite loss, and the
+         optimizer's learning rate after the step equal to the cosine
+         schedule at its update count;
+     (b) SAC on discrete_match, 256 envs, batch 256, 3 steps;
+     (c) SAC on catch_continuous with --normalize_observations at phase
+         12's shape, 2 steps: one statistic for the frames' channel;
+     (b) and (c) hold their loss, metrics and gradients on the card
+         against the CPU on a batch of their replay, as phase 12 does;
+     (d) V-trace on synthetic_atari_host with --normalize_observations,
+         256 envs x unroll 32, 2 cycles: one V-trace launch an update, B1
+         on the run's last unroll against its plain version;
+     (e) C6, uint16 frames gathered on the card: a PPO learner with
+         GFootball over 256 synthetic Football envs, unroll 32, 2 epochs x
+         8 split minibatches, 1 step; then the rollout's frames into a
+         device PrioritizedReplay and a prioritized sample, bit for bit the
+         same sample taken on the CPU;
+     (f) the R2D2 replay soak harness (python -m
+         seed_rl_torch.tools.soak_r2d2_replay) at 2000 unrolls for 10 s,
+         its JSON line printed: one n-step launch for its items and one a
+         train batch, B2 on its last batch against its plain version;
+ 20. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phases 14's to 18's, the
-     n-step kernel's those of both R2D2 paths and of phases 14's to 18's,
+     those of all three V-trace paths and of phases 14's to 19's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's to 19's,
      with phase 17's shapes on the ranks under "scale_out_shapes".
      The PPO and SAC paths launch neither kernel: the PPO advantage
      estimators are plain PyTorch and SAC has no recursion over time, as
@@ -3683,6 +3708,378 @@ def run_bench(smi, device):
             lines)
 
 
+# Phase 19: the CLI's last branches (--agent_module, SAC on
+# discrete_match, --normalize_observations on frames), C6 and the soak
+# harness. PPO at phase 10's knobs with the example composition; SAC on
+# discrete_match at phase 13's envs and batch; visual SAC at phase 12's
+# shape; V-trace on host frames (LAST_VTRACE_*), the Football PPO learner
+# and replay (LAST_FOOTBALL_*), the soak's arguments.
+LAST_EXAMPLE = "seed_rl_torch/examples/custom_ppo_composition.py"
+LAST_EXAMPLE_DECAY_STEPS = 10_000
+LAST_PPO_STEPS = 1
+LAST_SAC_DISCRETE_ENVS, LAST_SAC_DISCRETE_BATCH = 256, 256
+LAST_SAC_STEPS = {"discrete_match": 3, "catch_continuous": 2}
+LAST_VTRACE_ENVS, LAST_VTRACE_UNROLL, LAST_VTRACE_CYCLES = 256, 32, 2
+LAST_FOOTBALL_ENVS, LAST_FOOTBALL_UNROLL = 256, 32
+LAST_FOOTBALL_EPOCHS, LAST_FOOTBALL_MINIBATCHES = 2, 8
+LAST_FOOTBALL_REPLAY, LAST_FOOTBALL_SAMPLE = 512, 64
+LAST_SOAK_ARGS = ["--buffer_size=2000", "--seconds=10"]
+
+
+class StepTimer:
+    """While a phase-19 call runs, times each call of ``owner``'s
+    ``method`` (a train step) to a synchronize after it."""
+
+    def __init__(self, owner, method="train_step"):
+        self.owner, self.method, self.s = owner, method, []
+
+    def __enter__(self):
+        original = self.original = getattr(self.owner, self.method)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = original(*args, **kw)
+            torch.cuda.synchronize()
+            self.s.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.method, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.method, self.original)
+
+    def ms(self):
+        """The last step's ms (the first ones hold the warm-up)."""
+        return self.s[-1] * 1e3 if self.s else float("nan")
+
+
+def _last_path_end(name, start, step_ms, smi, what="step"):
+    print(f"{name}: {what} {step_ms:.3f} ms; peak device memory "
+          f"{_peak_memory_gb():.3f} GB; {time.perf_counter() - start:.1f} s "
+          f"in all ({smi})")
+
+
+def _on_card(name, learner, state):
+    tensors = learner.parameters() + learner.state_tensors(state)
+    off_card = [t.device for t in tensors if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{name}: {len(off_card)} tensors off the card")
+
+
+def run_last_agent_module(smi):
+    """Phase 19 (a): PPO on the toy env with the example --agent_module."""
+    from seed_rl_torch import train
+    from seed_rl_torch.agents.ppo import learner as ppo
+    from seed_rl_torch.agents.ppo.continuous_control_agent import (
+        ContinuousControlNet,
+    )
+
+    path = PPO_PATHS["ppo_toy"]
+    name = "agent_module ppo toy"
+    argv = ["--agent=ppo", *path.flags, f"--num_envs={path.envs}",
+            f"--unroll_length={path.unroll}",
+            f"--epochs_per_step={path.epochs}",
+            f"--batches_per_step={path.minibatches}",
+            "--total_environment_frames="
+            f"{LAST_PPO_STEPS * path.envs * path.unroll}",
+            f"--agent_module={LAST_EXAMPLE}", "--steps_per_call=1",
+            "--log_every_steps=1"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    with StepTimer(ppo.PPOLearner) as timer:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    launches = _launches()
+    net = learner.agent.net
+    widths = [layer.out_features for layer in net.policy_torso.layers]
+    if not isinstance(net, ContinuousControlNet) or widths != [128] * 3:
+        raise RuntimeError(f"{name}: composed net {type(net).__name__} "
+                           f"{widths}, want ContinuousControlNet 3x128")
+    count = learner.optimizer.count
+    if state.step != LAST_PPO_STEPS or count != (
+            LAST_PPO_STEPS * path.epochs * path.minibatches):
+        raise RuntimeError(f"{name}: {state.step} steps, {count} updates")
+    lr = learner.optimizer.learning_rate()
+    want_lr = 3e-4 * 0.5 * (1 + math.cos(
+        math.pi * min(count, LAST_EXAMPLE_DECAY_STEPS)
+        / LAST_EXAMPLE_DECAY_STEPS))
+    if not math.isclose(lr, want_lr, rel_tol=1e-12):
+        raise RuntimeError(f"{name}: learning rate {lr} after {count} "
+                           f"updates, the cosine schedule's {want_lr}")
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: launched {launches}")
+    _finite(name, metrics)
+    _on_card(name, learner, state)
+    print(f"{name}: ContinuousControlNet 3x128 tanh composed by "
+          f"{LAST_EXAMPLE}; {count} AdamW updates (weight decay "
+          f"{learner.optimizer._adam.defaults['weight_decay']}), learning "
+          f"rate {lr:.9e} = the cosine schedule at {count}; total_loss="
+          f"{float(metrics['GeneralizedOnPolicyLoss/total_loss']):.6f}; "
+          f"launches {launches}")
+    _last_path_end(name, start, timer.ms(), smi)
+
+
+def run_last_sac(smi, env):
+    """Phase 19 (b), (c): SAC on discrete_match, and on catch_continuous
+    with --normalize_observations."""
+    from seed_rl_torch import train
+    from seed_rl_torch.agents import sac
+
+    steps = LAST_SAC_STEPS[env]
+    if env == "discrete_match":
+        name = "sac discrete_match"
+        envs, rollout = LAST_SAC_DISCRETE_ENVS, 2
+        flags = ["--env=discrete_match", "--unroll_length=2",
+                 f"--batch_size={LAST_SAC_DISCRETE_BATCH}",
+                 "--replay_buffer_size=4096", "--replay_buffer_min_size=256",
+                 "--target_entropy=auto"]
+    else:
+        name = "sac catch_continuous normalized"
+        path = SAC_PATHS["sac_catch_continuous"]
+        envs, rollout = path.envs, path.rollout
+        flags = [*path.flags, "--normalize_observations"]
+    argv = ["--agent=sac", *flags, f"--num_envs={envs}",
+            f"--total_environment_frames={steps * envs * rollout}",
+            "--steps_per_call=1", "--log_every_steps=1"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    with StepTimer(sac.SACLearner) as timer:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    launches = _launches()
+    if state.step != steps or learner.optimizer.count != steps:
+        raise RuntimeError(f"{name}: {state.step} steps, "
+                           f"{learner.optimizer.count} updates")
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: launched {launches}")
+    _finite(name, metrics)
+    _on_card(name, learner, state)
+    obs_norm = learner.agent.obs_norm
+    if env == "discrete_match":
+        if learner.config.target_entropy != -1.0 or (
+                learner.net.action_dim != 1):
+            raise RuntimeError(f"{name}: target entropy "
+                               f"{learner.config.target_entropy}, action "
+                               f"dim {learner.net.action_dim}")
+        detail = "ActorCriticMLP, a one-dimensional discrete action"
+    else:
+        if tuple(obs_norm.mean.shape) != (1,) or not float(
+                obs_norm.steps) > 0:
+            raise RuntimeError(f"{name}: statistics of shape "
+                               f"{tuple(obs_norm.mean.shape)} over "
+                               f"{float(obs_norm.steps)} samples")
+        detail = (f"VisualActorCritic behind one statistic per channel "
+                  f"(mean {float(obs_norm.mean[0]):.4f}, std "
+                  f"{float(obs_norm.std[0]):.4f} over "
+                  f"{float(obs_norm.steps):.0f} pixels)")
+    print(f"{name}: {state.step} steps; {detail}; losses/total="
+          f"{float(metrics['losses/total']):.6f}; launches {launches}")
+    check_sac_loss_against_cpu(learner, state, name)
+    _last_path_end(name, start, timer.ms(), smi)
+
+
+def run_last_vtrace_host(smi):
+    """Phase 19 (d): V-trace on synthetic_atari_host with
+    --normalize_observations; returns (B1 launches, max |err|)."""
+    from seed_rl_torch import train
+
+    name = "vtrace synthetic_atari_host normalized"
+    envs, unroll, cycles = (LAST_VTRACE_ENVS, LAST_VTRACE_UNROLL,
+                            LAST_VTRACE_CYCLES)
+    argv = ["--agent=vtrace", "--env=synthetic_atari_host",
+            "--normalize_observations", f"--num_envs={envs}",
+            f"--unroll_length={unroll}",
+            f"--total_environment_frames={cycles * envs * unroll}",
+            "--log_every_steps=1"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    with HostTimer() as t:
+        learner, state, metrics = train.main(argv)
+        torch.cuda.synchronize()
+    launches = _launches()
+    if state.step != cycles or launches != {"vtrace": cycles, "nstep": 0}:
+        raise RuntimeError(f"{name}: {state.step} cycles, launches "
+                           f"{launches}; want one B1 a cycle")
+    _finite(name, metrics)
+    _on_card(name, learner, state)
+    obs_norm = learner.agent.obs_norm
+    want = cycles * (unroll + 1) * envs * 84 * 84
+    if tuple(obs_norm.mean.shape) != (1,) or float(obs_norm.steps) != want:
+        raise RuntimeError(f"{name}: statistics of shape "
+                           f"{tuple(obs_norm.mean.shape)} over "
+                           f"{float(obs_norm.steps)} samples, want {want}")
+    print(f"{name}: {cycles} cycles through the host loop, "
+          f"{type(learner.agent.net).__name__} stacking float32 normalized "
+          f"frames; one "
+          f"statistic per channel (mean {float(obs_norm.mean[0]):.4f}, std "
+          f"{float(obs_norm.std[0]):.4f} over {want} pixels); launches "
+          f"{launches}")
+    err = _check_vtrace_on_unroll(name, learner, t.last_unroll)
+    _last_path_end(name, start, (t.s["rollout"] + t.s["update"])
+                   / cycles * 1e3, smi, what="cycle (rollout + update)")
+    return launches["vtrace"], err
+
+
+def run_last_football(smi, device):
+    """Phase 19 (e): C6 on the card; PPO on synthetic Football's uint16
+    frames, then a device replay of them sampled as on the CPU."""
+    import functools
+
+    from seed_rl_torch import distributions as pd
+    from seed_rl_torch import optim
+    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agents.ppo import policy_losses
+    from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
+        GeneralizedOnPolicyLoss,
+    )
+    from seed_rl_torch.agents.ppo.learner import PPOConfig, PPOLearner
+    from seed_rl_torch.agents.ppo.policy_regularizers import (
+        KLPolicyRegularizer,
+    )
+    from seed_rl_torch.envs import BatchedEnv
+    from seed_rl_torch.envs.synthetic import SyntheticFootballEnv
+    from seed_rl_torch.models import GFootball
+    from seed_rl_torch.ops.advantages import GAE
+    from seed_rl_torch.ops.popart import PopArt
+    from seed_rl_torch.ops.running_statistics import AverageMeanStd
+    from seed_rl_torch.replay import PrioritizedReplay
+    from seed_rl_torch.rollout import RolloutEngine
+
+    name = "ppo football (uint16 frames)"
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    env = BatchedEnv(SyntheticFootballEnv(), LAST_FOOTBALL_ENVS,
+                     device=device)
+    dist = pd.CategoricalDistribution(env.action_space.n)
+    net = GFootball(dist.param_size, tuple(env.observation_spec().shape),
+                    seed=0, device=device)
+    agent = PolicyAgent(net, dist)
+    loss = GeneralizedOnPolicyLoss(
+        agent=agent,
+        reward_normalizer=PopArt(AverageMeanStd(), compensate=False),
+        parametric_action_distribution=dist,
+        advantage_estimator=GAE(lambda_=0.95),
+        policy_loss=policy_losses.ppo(epsilon=0.2), discount_factor=0.99,
+        regularizer=KLPolicyRegularizer(entropy=0.01), baseline_cost=1.0)
+    learner = PPOLearner(
+        RolloutEngine(env, agent, LAST_FOOTBALL_UNROLL, seed=1), agent, loss,
+        PPOConfig(epochs_per_step=LAST_FOOTBALL_EPOCHS, batch_mode="split",
+                  batches_per_step=LAST_FOOTBALL_MINIBATCHES),
+        functools.partial(optim.ClippedAdam, learning_rate=3e-4,
+                          clip_norm=0.5), seed=2)
+    state = learner.init()
+    rollout_state, unroll = learner.engine.rollout(state.rollout)
+    frames = unroll.timesteps.env_output.observation
+    if frames.dtype != torch.uint16:
+        raise RuntimeError(f"{name}: frames of {frames.dtype}")
+    t0 = time.perf_counter()
+    state, metrics = learner.update(state._replace(rollout=rollout_state),
+                                    unroll)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    updates = LAST_FOOTBALL_EPOCHS * LAST_FOOTBALL_MINIBATCHES
+    if state.step != 1 or learner.optimizer.count != updates:
+        raise RuntimeError(f"{name}: {state.step} steps, "
+                           f"{learner.optimizer.count} updates")
+    _finite(name, metrics)
+    if any(_launches().values()):
+        raise RuntimeError(f"{name}: launched {_launches()}")
+    print(f"{name}: one update of {updates} split minibatches over "
+          f"{list(frames.shape)} uint16 frames on the card; total_loss="
+          f"{float(metrics['GeneralizedOnPolicyLoss/total_loss']):.6f}")
+
+    # Each env's unroll of frames, one replay item, then a prioritized
+    # sample: on the card, and on the CPU with the card's indices.
+    items = {"frames": frames.transpose(0, 1).contiguous()}
+    gen = torch.Generator(device=device).manual_seed(3)
+    priorities = torch.rand(LAST_FOOTBALL_ENVS, generator=gen, device=device)
+    samples = []
+    for where in (device, torch.device("cpu")):
+        replay = PrioritizedReplay(LAST_FOOTBALL_REPLAY, 0.6)
+        rstate = replay.init_state({"frames": items["frames"][0].to(where)})
+        for _ in range(2):  # wraps the ring
+            rstate, _ = replay.insert(
+                rstate, {"frames": items["frames"].to(where)},
+                priorities.to(where))
+        # The card draws; the CPU takes the card's indices.
+        indices, weights, sample = replay.sample(
+            rstate, gen, LAST_FOOTBALL_SAMPLE, priority_exp=0.9,
+            indices=samples[0][0] if samples else None)
+        samples.append((indices.cpu(), weights.cpu(),
+                        sample["frames"].cpu()))
+    torch.cuda.synchronize()
+    (i_card, w_card, f_card), (i_cpu, w_cpu, f_cpu) = samples
+    if f_card.dtype != torch.uint16 or not torch.equal(
+            f_card.view(torch.int16), f_cpu.view(torch.int16)):
+        raise RuntimeError(f"{name}: the card's sampled frames differ from "
+                           "the CPU's")
+    want = items["frames"].cpu()[i_card % LAST_FOOTBALL_ENVS]
+    if not torch.equal(f_card.view(torch.int16), want.view(torch.int16)):
+        raise RuntimeError(f"{name}: sampled frames are not the inserted")
+    torch.testing.assert_close(w_card, w_cpu, rtol=1e-5, atol=0)
+    print(f"{name}: {LAST_FOOTBALL_SAMPLE} of {LAST_FOOTBALL_REPLAY} replay "
+          f"items of {list(items['frames'].shape[1:])} uint16 frames sampled"
+          f" on the card equal the CPU's sample bit for bit")
+    _last_path_end(name, start, update_ms, smi, what="update")
+
+
+def run_last_soak(smi):
+    """Phase 19 (f): the R2D2 replay soak harness; returns (B2 launches,
+    max |err| on its last batch)."""
+    from seed_rl_torch.agents import r2d2
+    from seed_rl_torch.tools import soak_r2d2_replay
+
+    name = "soak r2d2 replay"
+    last = {}
+    train_on_batch = r2d2.R2D2HostLearner.train_on_batch
+
+    def recorded(learner, state, items, weights):
+        last.update(learner=learner, items=items)
+        return train_on_batch(learner, state, items, weights)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    r2d2.R2D2HostLearner.train_on_batch = recorded
+    try:
+        result = soak_r2d2_replay.main(LAST_SOAK_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        r2d2.R2D2HostLearner.train_on_batch = train_on_batch
+    launches = _launches()
+    # One launch for the items' priorities, one a train batch: the warm
+    # one, the sustained ones and the staged one.
+    want = 1 + 1 + result["train_batches"] + 1
+    if launches != {"vtrace": 0, "nstep": want}:
+        raise RuntimeError(f"{name}: launches {launches}, want {want} B2")
+    if not (result["train_batches"] > 0 and math.isfinite(
+            result["sustained_env_frames_per_sec"])):
+        raise RuntimeError(f"{name}: {result}")
+    print(f"{name}: the JSON line above is the harness's ({smi}); B2 "
+          f"launches {launches['nstep']}")
+    err = check_nstep_on_batch(name, last["learner"], last["items"])
+    _last_path_end(name, start, result["stage_ms"]["train"], smi,
+                   what="train batch")
+    return launches["nstep"], err
+
+
+def run_last_branches(smi, device):
+    """Phase 19; returns (B1 launches, B2 launches, B1 max err, B2 max
+    err)."""
+    run_last_agent_module(smi)
+    run_last_sac(smi, "discrete_match")
+    run_last_sac(smi, "catch_continuous")
+    vtrace, vtrace_err = run_last_vtrace_host(smi)
+    run_last_football(smi, device)
+    nstep, nstep_err = run_last_soak(smi)
+    return vtrace, nstep, vtrace_err, nstep_err
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -3845,6 +4242,13 @@ def main():
     vtrace_err = max(vtrace_err, vtrace_bench_err)
     nstep_err = max(nstep_err, nstep_bench_err)
     print(f"phase 18 (the bench) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["last_branches"], nstep_launches["last_branches"],
+     vtrace_last_err, nstep_last_err) = run_last_branches(smi, device)
+    vtrace_err = max(vtrace_err, vtrace_last_err)
+    nstep_err = max(nstep_err, nstep_last_err)
+    print(f"phase 19 (the last CLI branches and tooling) took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
           f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "

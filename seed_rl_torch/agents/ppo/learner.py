@@ -61,6 +61,7 @@ from seed_rl_torch.utils.action_points import (
     snapshot_ppo_state,
 )
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
+from seed_rl_torch.utils.tree import take
 
 BATCH_MODES = (
     "repeat",
@@ -102,14 +103,12 @@ class _Batch(NamedTuple):
         return pytree.tree_leaves(self.prev_actions)[0].shape[1]
 
     def take(self, idx: torch.Tensor) -> "_Batch":
-        """The minibatch of batch columns ``idx``."""
-        def columns(tree):
-            return (None if tree is None
-                    else pytree.tree_map(lambda t: t[:, idx], tree))
-
+        """The minibatch of batch columns ``idx`` (uint16 frames through
+        their signed view: ``utils/tree.py::take``)."""
         return _Batch(
-            pytree.tree_map(lambda t: t[idx], self.agent_state),
-            *(columns(tree) for tree in self[1:]))
+            take(self.agent_state, idx),
+            *(None if leaves is None else take(leaves, idx, dim=1)
+              for leaves in self[1:]))
 
 
 def _mean_logs(history: List[Dict[str, torch.Tensor]]):

@@ -23,6 +23,7 @@ import torch.utils._pytree as pytree
 from seed_rl_torch.device import resolve_device
 from seed_rl_torch.parallel.mesh import Mesh
 from seed_rl_torch.types import EnvOutput
+from seed_rl_torch.utils import tree
 
 
 class TensorSpec(NamedTuple):
@@ -111,19 +112,14 @@ class BatchedEnvState(NamedTuple):
     episode_step: torch.Tensor  # i32[B]
 
 
-# torch.where has no CUDA kernel for the unsigned types wider than uint8
-# (the synthetic Football env's uint16 frames); a select only moves bits,
-# so those select through the signed type of their width.
-_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
-                torch.uint64: torch.int64}
-
-
 def _tree_where(pred, on_true, on_false):
     """Select whole sub-trees per batch element (pred is [B])."""
 
     def sel(a, b):
         p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
-        signed = _SIGNED_VIEW.get(a.dtype)
+        # torch.where has no CUDA kernel for the unsigned types wider than
+        # uint8 (the synthetic Football env's uint16 frames).
+        signed = tree.SIGNED_VIEW.get(a.dtype)
         if signed is not None:
             return torch.where(p, a.view(signed), b.view(signed)).view(
                 a.dtype)

@@ -5,8 +5,12 @@ optax.adam(schedule, b1=b1, eps=eps))`` over a list of parameters:
 - the clip is written out because optax's has no epsilon, while
   ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm;
 - ``torch.optim.Adam`` matches ``optax.adam`` (eps outside the square root);
-- the learning rate follows optax's ``linear_schedule`` over optimizer
-  updates when ``end_learning_rate`` is given;
+- ``learning_rate`` is a float or, as optax takes it, a schedule
+  ``count -> lr`` over optimizer updates (``linear_schedule`` and
+  ``cosine_decay_schedule`` are optax's);
+- a ``weight_decay`` makes it ``optax.adamw``: ``p - lr * (adam + wd * p)``,
+  which is ``torch.optim.Adam``'s decoupled decay-then-step (with 0 Adam
+  skips the decay);
 - a parameter the loss did not reach steps with a zero gradient, as optax
   gives it one: its moments decay and it moves on them, where
   ``torch.optim.Adam`` would skip it and keep a step count of its own;
@@ -20,7 +24,8 @@ also the schedule's position. A run restored from it steps on bitwise as
 if never stopped.
 """
 
-from typing import Dict, Iterable, List, Optional
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -48,38 +53,56 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     return norm
 
 
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """optax ``linear_schedule``: from ``init_value`` to ``end_value`` over
+    ``transition_steps`` updates, then flat (flat at ``init_value`` when
+    ``transition_steps`` is not positive)."""
+    def schedule(count: int) -> float:
+        if transition_steps <= 0:
+            return init_value
+        done = min(count, transition_steps) / transition_steps
+        return (init_value - end_value) * (1.0 - done) + end_value
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float,
+                          decay_steps: int) -> Callable[[int], float]:
+    """optax ``cosine_decay_schedule`` (``alpha`` 0): ``init_value * (1 +
+    cos(pi * min(count, decay_steps) / decay_steps)) / 2``."""
+    def schedule(count: int) -> float:
+        done = min(count, decay_steps) / decay_steps
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * done))
+
+    return schedule
+
+
 class ClippedAdam:
-    """Global-norm clip + Adam with an optional linear learning-rate decay."""
+    """Global-norm clip + Adam (AdamW with a ``weight_decay``), at a fixed
+    learning rate or on a schedule."""
 
     def __init__(
         self,
         params: Iterable[torch.Tensor],
-        learning_rate: float,
+        learning_rate: Union[float, Callable[[int], float]],
         clip_norm: Optional[float] = None,
         b1: float = 0.9,
         eps: float = 1e-8,
-        end_learning_rate: Optional[float] = None,
-        transition_steps: int = 0,
+        weight_decay: float = 0.0,
     ):
         self.params = list(params)
         self.clip_norm = clip_norm
-        self.init_learning_rate = learning_rate
-        self.end_learning_rate = end_learning_rate
-        self.transition_steps = transition_steps
+        self.schedule = learning_rate if callable(learning_rate) else (
+            lambda count: learning_rate)
         self.count = 0  # optimizer updates applied, as optax counts them
         self._adam = torch.optim.Adam(
-            self.params, lr=learning_rate, betas=(b1, 0.999), eps=eps
-        )
+            self.params, lr=self.schedule(0), betas=(b1, 0.999), eps=eps,
+            weight_decay=weight_decay, decoupled_weight_decay=True)
 
     def learning_rate(self) -> float:
-        """optax ``linear_schedule`` at the current update count."""
-        if self.end_learning_rate is None or self.transition_steps <= 0:
-            return self.init_learning_rate
-        done = min(self.count, self.transition_steps) / self.transition_steps
-        return (
-            (self.init_learning_rate - self.end_learning_rate) * (1.0 - done)
-            + self.end_learning_rate
-        )
+        """The schedule at the current update count."""
+        return self.schedule(self.count)
 
     def zero_grad(self):
         self._adam.zero_grad(set_to_none=True)

@@ -31,6 +31,25 @@ import torch
 import torch.distributed as dist
 
 from seed_rl_torch.parallel.draws import ShardedGenerator
+from seed_rl_torch.utils.tree import SIGNED_VIEW
+
+def _to_wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a type NCCL and gloo both carry, sharing its memory: bool
+    as uint8, uint16 (the Football env's frames; neither carries 16-bit
+    integers) as its two bytes on a new last axis, uint32 / uint64 as
+    their signed view."""
+    if x.dtype == torch.bool:
+        return x.view(torch.uint8)
+    if x.dtype == torch.uint16:
+        return x.unsqueeze(-1).view(torch.uint8)
+    return x.view(SIGNED_VIEW.get(x.dtype, x.dtype))
+
+
+def _from_wire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``_to_wire`` for a tensor that was ``dtype``."""
+    if dtype == torch.uint16:
+        return x.view(torch.uint16).squeeze(-1)
+    return x.view(dtype)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -140,18 +159,14 @@ class Mesh:
         x = x.detach()
         counts = self.all_gather_counts(x.shape[dim])
         longest = max(counts)
-        moved = x.movedim(dim, 0)
-        if moved.dtype == torch.bool:
-            moved = moved.view(torch.uint8)
+        moved = _to_wire(x.movedim(dim, 0))
         padded = torch.zeros((longest,) + tuple(moved.shape[1:]),
                              dtype=moved.dtype, device=moved.device)
         padded[:moved.shape[0]] = moved
         parts = [torch.empty_like(padded) for _ in range(self.size)]
         dist.all_gather(parts, padded, group=self.group)
         out = torch.cat([p[:n] for p, n in zip(parts, counts)])
-        if x.dtype == torch.bool:
-            out = out.view(torch.bool)
-        return out.movedim(0, dim)
+        return _from_wire(out, x.dtype).movedim(0, dim)
 
     def all_gather_counts(self, count: int) -> List[int]:
         """Every rank's ``count``, in rank order."""
@@ -172,9 +187,7 @@ class Mesh:
         if not self.collective:
             return x
         counts = self.all_gather_counts(x.shape[dim])
-        moved = x.detach().movedim(dim, 0)
-        if moved.dtype == torch.bool:
-            moved = moved.view(torch.uint8)
+        moved = _to_wire(x.detach().movedim(dim, 0))
         parts = []
         for rank, count in enumerate(counts):
             if not count:
@@ -190,9 +203,7 @@ class Mesh:
         out = (torch.cat(parts) if parts else torch.empty(
             shape, dtype=moved.dtype, device="cpu" if self.rank == 0
             else "meta"))
-        if x.dtype == torch.bool:
-            out = out.view(torch.bool)
-        return out.movedim(0, dim)
+        return _from_wire(out, x.dtype).movedim(0, dim)
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """Rank ``src``'s ``obj`` on every rank (a host value: a decision,

@@ -194,19 +194,19 @@ class PrioritizedReplay:
         if self.mesh.size == 1:
             # One rank stores every slot: the masked indexing below has a
             # data-dependent shape, a host sync this path does not pay.
-            return pytree.tree_map(lambda b: b[indices], state.buffer)
+            return tree.take(state.buffer, indices)
         lo, hi = self.slots.start, self.slots.stop
         mine = (indices >= lo) & (indices < hi)
         local = indices[mine] - lo
-        parts = pytree.tree_map(
-            lambda b: self.mesh.all_gather(b[local]), state.buffer)
+        parts = pytree.tree_map(self.mesh.all_gather,
+                                tree.take(state.buffer, local))
         # The gathered rows are the owners' in rank order, each in batch
         # order; the owner of a slot is slot // (S/N).
         owner = torch.div(indices, hi - lo, rounding_mode="floor")
         order = torch.argsort(owner, stable=True)
         position = torch.empty_like(order)
         position[order] = torch.arange(order.numel(), device=order.device)
-        return pytree.tree_map(lambda p: p[position], parts)
+        return tree.take(parts, position)
 
     def update_priorities(
         self, state: ReplayState, indices: torch.Tensor, priorities

@@ -211,6 +211,13 @@ class HostReplayBuffer:
             gathered = self._upload(gathered)
         return indices, weights, _rebuild(self._structure, gathered)
 
+    def upload(self, items):
+        """``sample(..., to_device=False)``'s items as tensors on
+        ``device``, copied as ``sample`` copies them."""
+        leaves = []
+        structure = _describe(items, leaves)
+        return _rebuild(structure, self._upload(leaves))
+
     def sample_async(self, num_samples: int, priority_exp: float):
         """Starts gathering and copying the next batch on the prefetch
         thread."""

@@ -4,7 +4,8 @@ Port of these paths of ``seed_rl_tpu/train.py``, with the same flag names
 and defaults, plus ``--device`` (default: the CUDA device; ``--device=cpu``
 runs on the CPU):
 - ``--agent=vtrace --env={toy,toy_memory}`` (``MLPAndLSTM``), with
-  ``--normalize_observations`` if asked;
+  ``--normalize_observations`` if asked (also on the host envs' frames but
+  Football's, which it turns into float32 before the net's frame stack);
 - ``--agent=vtrace --env={catch,synthetic_atari}`` from 84x84 uint8 frames:
   ``AtariPolicyNet`` (4 stacked frames, LSTM 256) by default, or
   ``ImpalaDeep`` with ``--conv_net=impala_deep`` (``--remat_torso``
@@ -20,11 +21,13 @@ runs on the CPU):
   / ``synthetic_atari`` ``AtariPolicyNet`` with LSTM 256 (recurrent, so
   ``shuffle`` by default); PopArt on the value targets throughout;
 - ``--agent=sac`` (the fused on-device learner, uniform replay, polyak
-  targets): on ``toy`` / ``toy_memory`` / ``bit_flipping``
-  ``ActorCriticMLP``, or ``ActorCriticLSTM`` with ``--sac_net=lstm``; on
-  ``catch`` / ``catch_continuous`` ``VisualActorCritic`` over frames;
-  ``--her_window_length`` turns on HER (``bit_flipping`` only), and
-  ``--normalize_observations`` works on the vector envs;
+  targets): on ``toy`` / ``toy_memory`` / ``discrete_match`` /
+  ``bit_flipping`` ``ActorCriticMLP`` (a one-dimensional head of the
+  discrete action on ``discrete_match``), or ``ActorCriticLSTM`` with
+  ``--sac_net=lstm``; on ``catch`` / ``catch_continuous``
+  ``VisualActorCritic`` over frames; ``--her_window_length`` turns on HER
+  (``bit_flipping`` only), and ``--normalize_observations`` works on every
+  env (on frames, one statistic per channel);
 - every agent on the host envs (``--env={synthetic_atari_host,mujoco,
   atari,dmlab,football}``, stepped on the host by a ``HostBatchedEnv`` of
   ``min(num_envs, 16)`` threads; ``--env_name`` picks the gym env of
@@ -90,8 +93,14 @@ run resumes on any number of ranks). More than one replica asked for on a
 host env or outside ``--run_mode=train`` raises ``ValueError`` (the JAX
 CLI ignores the flag there), as do more ranks than cards.
 
-Other agent/env pairs, ``--agent_module`` and observation normalization
-outside V-trace and SAC or on frames are not ported yet and raise
+``--agent_module=<file or dotted module>`` recomposes the agent stack
+before the learner is built, in every run mode: its ``configure(args, env,
+components)`` takes the JAX CLI's components for the agent (see
+``_apply_agent_module``; ``seed_rl_torch/examples/custom_ppo_composition.py``
+is an example). Observation normalization under R2D2 and PPO (which the
+JAX CLI ignores) and under V-trace on the device frame envs (where the JAX
+CLI's rollout fails) and on Football (whose net bit-unpacks the frames),
+and the agent/env pairs the JAX CLI cannot run, raise
 ``NotImplementedError`` rather than being ignored.
 Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
 use, this one raises ``ValueError``:
@@ -153,7 +162,7 @@ import torch
 from seed_rl_torch.device import resolve_device
 
 # The JAX CLI's choices, so every spelling it accepts is recognised here and
-# refused by name until ported.
+# refused by name where the port does not run it.
 AGENTS = ["vtrace", "ppo", "r2d2", "sac"]
 ENVS = [
     "toy", "toy_memory", "discrete_match", "bit_flipping", "synthetic_atari",
@@ -169,7 +178,7 @@ PORTED = {
     "r2d2": ("discrete_match", "catch", "synthetic_atari") + HOST_ENVS,
     "ppo": ("toy", "toy_memory", "discrete_match", "catch",
             "synthetic_atari") + HOST_ENVS,
-    "sac": ("toy", "toy_memory", "bit_flipping", "catch",
+    "sac": ("toy", "toy_memory", "discrete_match", "bit_flipping", "catch",
             "catch_continuous") + HOST_ENVS,
 }
 # Envs of Atari-shaped frames: AtariPolicyNet, DuelingLSTMDQNNet, and
@@ -259,7 +268,9 @@ def parse_args(argv=None):
     p.add_argument("--log_every_steps", type=int, default=20)
     p.add_argument("--normalize_observations", action="store_true",
                    help="streaming mean/std observation normalization "
-                        "(--agent=vtrace or sac, on the vector envs)")
+                        "(--agent=vtrace or sac; on frames one statistic "
+                        "per channel; V-trace on the host envs' frames, "
+                        "not the device ones)")
     p.add_argument("--num_replicas", type=int, default=0,
                    help="data-parallel ranks of the device learners: 0 = "
                         "all local CUDA devices (1 with --device=cpu); N > 1 "
@@ -351,8 +362,47 @@ def parse_args(argv=None):
     p.add_argument("--num_saved_models", type=int, default=0)
     p.add_argument("--num_snapshots", type=int, default=0)
     p.add_argument("--agent_module", default=None,
-                   help="the free-composition hook (not ported yet)")
+                   help="path to a Python file (or a dotted module name) "
+                        "whose configure(args, env, components) recomposes "
+                        "the agent stack (net, distribution, agent, loss, "
+                        "config, optimizer) before the learner is built; see "
+                        "seed_rl_torch/examples/custom_ppo_composition.py")
     return p.parse_args(argv)
+
+
+def _apply_agent_module(args, env, components: dict) -> dict:
+    """The free-composition hook: loads ``--agent_module`` (a file path or
+    a dotted module name) and calls its ``configure(args, env,
+    components)``; what it returns replaces ``components`` (None keeps its
+    changes in place).
+
+    ``components`` holds the JAX CLI's keys for the agent: ``net``,
+    ``dist``, ``agent``, ``config`` and ``optimizer`` for V-trace and SAC,
+    the same and ``loss`` for PPO, and ``net``, ``agent``, ``config`` and
+    ``optimizer`` for R2D2. Where the JAX CLI passes an optax transform,
+    ``optimizer`` here is a factory ``params -> optimizer`` (the CLI's is a
+    ``functools.partial`` of ``optim.ClippedAdam``, whose ``learning_rate``
+    may be a schedule and which takes a ``weight_decay``); the learner calls
+    it on its parameters.
+    """
+    if not args.agent_module:
+        return components
+    import importlib
+    import importlib.util
+
+    if os.path.exists(args.agent_module):
+        spec = importlib.util.spec_from_file_location(
+            "seed_rl_torch_agent_module", args.agent_module)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    else:
+        module = importlib.import_module(args.agent_module)
+    configure = getattr(module, "configure", None)
+    if configure is None:
+        raise AttributeError(f"--agent_module={args.agent_module} must "
+                             "define configure(args, env, components)")
+    result = configure(args, env, components)
+    return components if result is None else result
 
 
 def _refuse_unported(args):
@@ -366,12 +416,24 @@ def _refuse_unported(args):
         refuse(f"--agent={args.agent}")
     if args.env not in PORTED[args.agent]:
         refuse(f"--env={args.env} with --agent={args.agent}")
-    if args.agent_module:
-        refuse("--agent_module (the free-composition hook)")
-    if args.normalize_observations and (
-            args.agent not in ("vtrace", "sac") or args.env in PIXEL_ENVS):
-        refuse(f"--normalize_observations with --agent={args.agent} "
-               f"--env={args.env}")
+    if args.normalize_observations and args.agent not in ("vtrace", "sac"):
+        raise NotImplementedError(
+            f"--normalize_observations is not ported to --agent="
+            f"{args.agent}: the JAX CLI ignores it there")
+    if (args.normalize_observations and args.agent == "vtrace"
+            and args.env in PIXEL_ENVS and args.env not in HOST_ENVS):
+        raise NotImplementedError(
+            f"--normalize_observations with --agent=vtrace on the device "
+            f"frame env --env={args.env} is not ported: the JAX CLI's "
+            "rollout fails there (its float32 frame stack cannot replace "
+            "the uint8 one in the rollout's carry)")
+    if (args.normalize_observations and args.agent == "vtrace"
+            and args.env == "football"):
+        raise NotImplementedError(
+            "--normalize_observations with --agent=vtrace --env=football is "
+            "not ported: the JAX CLI cannot run it (GFootball bit-unpacks "
+            "its packed uint16 frames, which the normalization has turned "
+            "into floats)")
     host = args.env in HOST_ENVS
     _refuse_remote_flags(args, host)
     for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
@@ -661,18 +723,17 @@ def _run(args, env, host, device, mesh=None):
     from seed_rl_torch.utils.checkpoint import CheckpointManager
     from seed_rl_torch.utils.metrics import MetricsLogger
 
-    updates = _optimizer_updates(args, host)
-    decay = args.lr_decay_multiplier != 1.0
+    learning_rate = args.learning_rate
+    if args.lr_decay_multiplier != 1.0:
+        learning_rate = optim.linear_schedule(
+            args.learning_rate, args.lr_decay_multiplier * args.learning_rate,
+            _optimizer_updates(args, host))
     optimizer = functools.partial(
         optim.ClippedAdam,
-        learning_rate=args.learning_rate,
+        learning_rate=learning_rate,
         clip_norm=args.clip_norm,
         b1=args.adam_beta1,
         eps=args.adam_epsilon,
-        end_learning_rate=(
-            args.lr_decay_multiplier * args.learning_rate if decay else None
-        ),
-        transition_steps=updates,
     )
     build = {"r2d2": _r2d2_learner, "ppo": _ppo_learner,
              "sac": _sac_learner, "vtrace": _vtrace_learner}[args.agent]
@@ -922,6 +983,11 @@ def _vtrace_learner(args, env, host, optimizer, device):
         discounting=args.discounting,
         entropy_cost=args.entropy_cost,
     )
+    components = _apply_agent_module(args, env, {
+        "net": net, "dist": dist, "agent": agent, "config": config,
+        "optimizer": optimizer})
+    agent, config, optimizer = (components["agent"], components["config"],
+                                components["optimizer"])
     if args.run_mode == "learner":
         learner = vtrace_agent.VTraceLearner(
             _remote_engine(args, env, agent, device), agent, config,
@@ -979,6 +1045,11 @@ def _r2d2_learner(args, env, host, optimizer, device):
     if not host:
         epsilons = epsilons[env.env_ids]  # a rank's envs' (all on one)
     agent = r2d2.R2D2Agent(net, epsilons)
+    components = _apply_agent_module(args, env, {
+        "net": net, "agent": agent, "config": config,
+        "optimizer": optimizer})
+    agent, config, optimizer = (components["agent"], components["config"],
+                                components["optimizer"])
     if args.run_mode == "learner":
         # The remote loop keeps the eval envs' unrolls out by env id, so
         # every unroll of an insertion batch is a training env's.
@@ -1080,6 +1151,12 @@ def _ppo_learner(args, env, host, optimizer, device):
                                        else "shuffle"),
         batches_per_step=args.batches_per_step,
     )
+    components = _apply_agent_module(args, env, {
+        "net": net, "dist": dist, "agent": agent, "loss": loss,
+        "config": config, "optimizer": optimizer})
+    agent, loss, config, optimizer = (
+        components["agent"], components["loss"], components["config"],
+        components["optimizer"])
     if args.run_mode == "learner":
         learner = PPOLearner(_remote_engine(args, env, agent, device), agent,
                              loss, config, optimizer, seed=2)
@@ -1141,6 +1218,11 @@ def _sac_learner(args, env, host, optimizer, device):
         her_window_length=her_window,
         polyak=args.polyak,
     )
+    components = _apply_agent_module(args, env, {
+        "net": net, "dist": dist, "agent": agent, "config": config,
+        "optimizer": optimizer})
+    agent, config, optimizer = (components["agent"], components["config"],
+                                components["optimizer"])
     if args.run_mode == "learner":
         from seed_rl_torch.replay_host import HostReplayBuffer
 

@@ -94,8 +94,9 @@ def _differs(got, want):
 
 def test_clipped_adam_state_round_trip_is_bitwise(tmp_path):
     def make(params):
-        return optim.ClippedAdam(params, learning_rate=1e-2, clip_norm=1.0,
-                                 end_learning_rate=1e-3, transition_steps=4)
+        return optim.ClippedAdam(params,
+                                 optim.linear_schedule(1e-2, 1e-3, 4),
+                                 clip_norm=1.0)
 
     def step(params, opt):
         opt.zero_grad()

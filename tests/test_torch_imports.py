@@ -133,6 +133,24 @@ def test_scan_covers_the_bench_and_its_utils():
         assert not roots & FORBIDDEN, name
 
 
+def test_scan_covers_the_example_module_the_tools_and_the_launchers():
+    """The example ``--agent_module``, the soak harness and the reference
+    launchers are held to the rule: the Python files import no JAX and
+    nothing of seed_rl_tpu, and the launchers run the port's modules and
+    name none of the JAX package's."""
+    files = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"seed_rl_torch/examples/__init__.py",
+            "seed_rl_torch/examples/custom_ppo_composition.py",
+            "seed_rl_torch/tools/__init__.py",
+            "seed_rl_torch/tools/soak_r2d2_replay.py"} <= files
+    launchers = sorted((ROOT / "seed_rl_torch").rglob("*.sh"))
+    assert len(launchers) == 5
+    for path in launchers:
+        text = path.read_text()
+        assert "python -m seed_rl_torch." in text, path
+        assert "seed_rl_tpu" not in text and "jax" not in text.lower(), path
+
+
 def test_env_packages_only_inside_the_adapter_functions():
     """gymnasium and the emulators stay off the card's path: never at
     module level, and inside a function only in the adapters that build a

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from seed_rl_tpu import distributions as jpd
 from seed_rl_tpu.agent import (
@@ -45,14 +46,18 @@ from seed_rl_torch import distributions as tpd
 from seed_rl_torch import optim, train
 from seed_rl_torch.agent import NormalizingObservationsAgent, PolicyAgent
 from seed_rl_torch.agents import vtrace
-from seed_rl_torch.envs import BatchedEnv, ToyEnv
-from seed_rl_torch.models import MLPAndLSTM, convert
+from seed_rl_torch.envs import BatchedEnv, ToyEnv, dmlab
+from seed_rl_torch.envs.spaces import Box
+from seed_rl_torch.envs.synthetic import SyntheticAtariGymEnv
+from seed_rl_torch.models import ImpalaDeep, MLPAndLSTM, convert
 from seed_rl_torch.ops import normalizer
 from seed_rl_torch.rollout import RolloutEngine, Timestep, Unroll
 from seed_rl_torch.types import AgentOutput, EnvOutput
 
 STATS_TOL = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-4, atol=1e-5)
+# The parameters after Adam from pixels.
+UPDATE_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 @pytest.fixture(autouse=True)
@@ -292,7 +297,154 @@ def test_train_main_vtrace_normalize_observations_on_cpu():
     ["--agent=vtrace", "--env=catch"],
     ["--agent=vtrace", "--env=synthetic_atari"],
     ["--agent=ppo", "--env=toy"],
+    # The JAX CLI ignores the flag under R2D2 and PPO, on frames too.
+    ["--agent=r2d2", "--env=discrete_match"],
+    ["--agent=ppo", "--env=synthetic_atari_host"],
+    # The JAX CLI's GFootball bit-unpacks the normalized (float) frames and
+    # fails; the port would unpack truncated floats.
+    ["--agent=vtrace", "--env=football"],
 ])
 def test_train_main_refuses_normalize_observations_elsewhere(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(["--device=cpu", "--normalize_observations"] + flags)
+
+
+# -- frames: SAC on Catch, V-trace through the host loop -------------------
+
+def test_train_main_vtrace_normalizes_host_frames_on_cpu():
+    """``--agent=vtrace --env=synthetic_atari_host
+    --normalize_observations`` trains through the host loop: one
+    statistic for the frames' one channel, folded from every pixel of
+    each step's (T + 1) x B frames."""
+    learner, state, metrics = train.main([
+        "--device=cpu", "--agent=vtrace", "--env=synthetic_atari_host",
+        "--normalize_observations", "--num_envs=2", "--unroll_length=3",
+        "--total_environment_frames=12", "--log_every_steps=1",
+    ])
+    assert state.step == 2
+    assert isinstance(learner.agent, NormalizingObservationsAgent)
+    assert learner.agent.obs_norm.mean.shape == (1,)
+    assert float(learner.agent.obs_norm.steps) == 2 * 4 * 2 * 84 * 84
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+class _DmLabShapedFrames(SyntheticAtariGymEnv):
+    """A host env of DMLab-shaped frames (72x96 RGB uint8, 9 actions),
+    standing in for ``deepmind_lab``."""
+
+    def __init__(self):
+        super().__init__(num_actions=9, frame_shape=(72, 96))
+        self.observation_space = Box(0, 255, (72, 96, 3), np.uint8)
+
+    def _obs(self):
+        return np.repeat(super()._obs(), 3, axis=-1)
+
+
+def test_train_main_vtrace_normalizes_dmlab_frames_on_cpu(monkeypatch):
+    """``--agent=vtrace --env=dmlab --normalize_observations`` (ImpalaDeep
+    under NormalizingObservationsAgent, which the JAX CLI runs too) trains
+    through the host loop on DMLab-shaped frames: one statistic per RGB
+    channel."""
+    monkeypatch.setattr(dmlab, "create_environment",
+                        lambda game, task=0: _DmLabShapedFrames())
+    learner, state, metrics = train.main([
+        "--device=cpu", "--agent=vtrace", "--env=dmlab",
+        "--normalize_observations", "--num_envs=2", "--unroll_length=3",
+        "--total_environment_frames=12", "--log_every_steps=1",
+    ])
+    assert state.step == 2
+    assert isinstance(learner.agent, NormalizingObservationsAgent)
+    assert isinstance(learner.agent.net, ImpalaDeep)
+    assert learner.agent.obs_norm.mean.shape == (3,)
+    assert float(learner.agent.obs_norm.steps) == 2 * 4 * 2 * 72 * 96
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("name", ["visual_catch_normalized",
+                                  "visual_catch_continuous_normalized"])
+def test_sac_step_on_normalized_frames_matches_jax(name):
+    """``--agent=sac --env={catch,catch_continuous}
+    --normalize_observations``: one ``train_on_batch`` of
+    ``VisualActorCritic`` behind per-channel statistics (one per channel of
+    the 42x42x1 frames, as JAX sizes them) against JAX from the same
+    parameters, statistics, replay and draws: metrics within rtol 1e-4 /
+    atol 1e-5, the parameters after Adam from pixels within rtol 1e-3 /
+    atol 1e-4 (tests/test_torch_sac.py's harness)."""
+    from test_torch_sac import CASES, train_on_batch_against_jax
+
+    train_on_batch_against_jax(CASES[name])
+
+
+def test_vtrace_host_loop_on_normalized_frames_matches_jax():
+    """``--agent=vtrace --env=synthetic_atari_host
+    --normalize_observations``: ``NormalizingObservationsAgent`` turns the
+    uint8 frames into float32 before AtariPolicyNet's frame stack. Two
+    cycles of JAX's host loop (rollout with the learner's parameters, then
+    the update that folds the unroll into the statistics) against the
+    port's, deterministic actions: the second unroll's actions exactly and
+    its stored float32 frame stack within rtol 1e-4 / atol 1e-5, the
+    metrics and the parameters after each Adam step within rtol 1e-3 /
+    atol 1e-4 (from pixels), the per-channel statistics within rtol 1e-5 /
+    atol 1e-6 and their step count exactly."""
+    from seed_rl_tpu.rollout_host import HostRolloutEngine as JaxHostEngine
+    from seed_rl_torch.rollout_host import HostRolloutEngine
+    from test_torch_host_envs import FRAME, _frame_env, _vtrace_agents
+
+    B, T, lr = 3, 4, 1e-3
+    jinner, params, tinner = _vtrace_agents(B)
+    jagent = JaxNormalizingObservationsAgent(jinner)
+    tagent = NormalizingObservationsAgent(tinner, 1)
+    config = dict(discounting=0.9, entropy_cost=1e-2)
+    jlearner = jax_vtrace.VTraceLearner(
+        JaxHostEngine(_frame_env(B, "jax"), jagent, T, deterministic=True),
+        jagent, jax_vtrace.VTraceConfig(**config),
+        optax.chain(optax.clip_by_global_norm(40.0), optax.adam(lr)))
+    learner = vtrace.VTraceLearner(
+        HostRolloutEngine(_frame_env(B, "torch"), tagent, T, device="cpu",
+                          deterministic=True),
+        tagent, vtrace.VTraceConfig(**config),
+        functools.partial(optim.ClippedAdam, learning_rate=lr,
+                          clip_norm=40.0))
+    jstate = jlearner.init(jax.random.PRNGKey(0))
+    assert jstate.params["net"]["obs_norm"].mean.shape == (1,)
+    jstate = jstate._replace(params=dict(
+        jstate.params, net=dict(jstate.params["net"], policy=params)))
+    jstate = jstate._replace(opt_state=jlearner.optimizer.init(
+        jstate.params))
+    with torch.no_grad():
+        learner.entropy_cost.copy_(_t(jstate.params["entropy_cost"]))
+    jhost = jlearner.engine.init(jlearner.rollout_params(jstate),
+                                 jax.random.PRNGKey(1))
+    thost = learner.engine.init()
+    state = learner.init()
+    update = jax.jit(jlearner.update)
+    for cycle in range(2):
+        jhost, junroll = jlearner.engine.rollout(
+            jlearner.rollout_params(jstate), jhost)
+        thost, tunroll = learner.engine.rollout(thost)
+        np.testing.assert_array_equal(
+            tunroll.timesteps.agent_output.action.numpy(),
+            np.asarray(junroll.timesteps.agent_output.action))
+        stack = pytree.tree_leaves(tunroll.agent_state)
+        jstack = jax.tree.leaves(junroll.agent_state)
+        for got, want in zip(stack, jstack):
+            assert str(got.dtype).split(".")[-1] == str(want.dtype)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        jstate, jmetrics = update(jstate, junroll, jax.random.PRNGKey(7))
+        state, metrics = learner.update(state, tunroll)
+        # host_learner_loop's hand-over of the parameters and statistics to
+        # the engine's acting copy.
+        learner.engine.publish(learner.agent)
+        for k in jmetrics:
+            np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                       **UPDATE_TOL, err_msg=f"cycle {cycle}: {k}")
+        want = _named(tinner.net, jax.tree.map(np.asarray, jstate.params))
+        for name, got in tinner.net.named_parameters():
+            np.testing.assert_allclose(got.detach().numpy(), want[name],
+                                       **UPDATE_TOL,
+                                       err_msg=f"cycle {cycle}: {name}")
+        _close(tagent.obs_norm, jstate.params["net"]["obs_norm"])
+        # Every pixel of the (T + 1) x B frames is a sample of the one
+        # channel's statistics.
+        assert float(tagent.obs_norm.steps) == (
+            (cycle + 1) * (T + 1) * B * FRAME[0] * FRAME[1])

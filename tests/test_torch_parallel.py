@@ -5,8 +5,9 @@ one global-array program whose result equals the single-device program's;
 the port's two ranks must equal its one-rank run, and through it the JAX
 package:
 - V-trace, R2D2 (n-step and Retrace, with eval envs that split unevenly
-  over the ranks), PPO (``split`` with GAE; V-MPO with PopArt on a
-  recurrent net; V-trace advantages with AWR in ``repeat`` mode) and SAC
+  over the ranks; from Catch frames), PPO (``split`` with GAE; V-MPO with
+  PopArt on a recurrent net; V-trace advantages with AWR in ``repeat``
+  mode; from Catch frames) and SAC
   (continuous with a tuned entropy cost; discrete with HER on
   ``bit_flipping``; with observation normalization) through
   ``train.main(argv, mesh=...)`` on two ranks against ``--num_replicas=1``:
@@ -100,6 +101,18 @@ CLI_CASES = {
         "--batch_size=16", "--replay_buffer_size=64",
         "--replay_buffer_min_size=32", "--normalize_observations",
         "--total_environment_frames=192"],
+    # From Catch frames, each within TOL (rtol 1e-4 / atol 1e-5): R2D2
+    # (DuelingLSTMDQNNet, the device replay of frames sharded by slot) and
+    # PPO (AtariPolicyNet, shuffle minibatches of frame columns).
+    "r2d2-catch": [
+        "--agent=r2d2", "--env=catch", "--num_envs=16", "--unroll_length=4",
+        "--burn_in=1", "--n_steps=2", "--replay_buffer_size=64",
+        "--replay_buffer_min_size=16", "--batch_size=8",
+        "--total_environment_frames=128"],
+    "ppo-catch": [
+        "--agent=ppo", "--env=catch", "--num_envs=16", "--unroll_length=4",
+        "--epochs_per_step=1", "--batches_per_step=2",
+        "--total_environment_frames=128"],
     "sac-discrete-her": [
         "--agent=sac", "--env=bit_flipping", "--her_window_length=4",
         "--unroll_length=2", "--num_envs=16", "--batch_size=16",
@@ -234,6 +247,16 @@ def _r2d2_jax_case(target):
                       priorities=np.asarray(jreplay.priorities))
 
 
+# Synthetic Football frames' dtype across the ranks (C6): 8 items of 3x5
+# uint16 frames, the top bit set in some, a 16-slot replay sharded by slot,
+# a sample that takes items from both ranks' slots.
+_RNG = np.random.RandomState(0)
+UINT16_SPEC = dict(
+    frames=_RNG.randint(0, 2 ** 16, (8, 3, 5)).astype(np.uint16).view(
+        np.int16),
+    size=16, indices=np.array([9, 0, 3, 8, 12, 1, 9], np.int64))
+
+
 # -- one process group for every two-rank job --------------------------------
 
 
@@ -257,6 +280,9 @@ def runs():
     names.append("gathers")
     refs["gathers"] = None
     todo.append(("gathers", None))
+    names.append("uint16_frames")
+    refs["uint16_frames"] = UINT16_SPEC
+    todo.append(("uint16_frames", UINT16_SPEC))
     ranks = parallel.spawn(workers.jobs, 2, "cpu", args=(todo,), threads=1,
                            timeout_secs=300)
     return {name: (refs[name], [ranks[0][i], ranks[1][i]])
@@ -426,6 +452,24 @@ def test_gather_to_host_holds_every_part_on_rank_0_only(runs):
             == {s for _, s in r0["layout"]})
     assert {d for d, _ in r0["layout"] + r1["layout"]} == {"meta"}
     assert any(s and s[0] == 4 for _, s in r0["rollout"])
+
+
+def test_uint16_frames_cross_the_ranks_bit_for_bit(runs):
+    """C6 over gloo: uint16 frames cross the collectives as their int16
+    view and come back uint16, bit for bit: the all-gather and the gather
+    to rank 0's host in rank order, and the replay sharded by slot samples
+    the inserted frames from both ranks' slots (two inserts of both ranks'
+    halves in rank order fill the 16 slots: slot s holds item s % 8)."""
+    spec, ranks = runs["uint16_frames"]
+    frames = spec["frames"]
+    ring = frames
+    for r in ranks:
+        assert r["dtypes"] == ["torch.uint16", "torch.uint16"]
+        np.testing.assert_array_equal(r["gathered"], frames)
+        np.testing.assert_array_equal(r["sampled"],
+                                      ring[spec["indices"] % 8])
+    np.testing.assert_array_equal(ranks[0]["hosted"], frames)
+    assert ranks[1]["hosted"] == "meta"
 
 
 def test_main_runs_on_the_device_the_argv_asks_for(monkeypatch):

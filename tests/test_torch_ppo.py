@@ -615,8 +615,6 @@ def test_train_main_ppo_on_cpu(env, flags, mode, net_type):
     (["--agent=ppo", "--env=catch", "--conv_net=impala_deep"], ValueError),
     (["--agent=vtrace", "--env=toy", "--lambda_=0.9"], ValueError),
     (["--agent=ppo", "--env=toy", "--run_mode=actor"], NotImplementedError),
-    (["--agent=ppo", "--env=toy", "--agent_module=custom_ppo_composition"],
-     NotImplementedError),
     (["--agent=ppo", "--env=toy", "--normalize_observations"],
      NotImplementedError),
     # Data parallelism is for the device learners (the JAX CLI ignores the

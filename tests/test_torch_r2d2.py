@@ -488,13 +488,19 @@ def test_train_main_r2d2_on_cpu():
 @pytest.mark.parametrize("flags", [
     ["--agent=r2d2", "--env=toy"],
     ["--agent=vtrace", "--env=discrete_match"],
-    ["--agent=r2d2", "--env=discrete_match",
-     "--agent_module=custom_ppo_composition"],
     ["--agent=r2d2", "--env=discrete_match", "--run_mode=actor"],
 ])
 def test_train_main_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(["--device=cpu"] + flags)
+
+
+def test_train_main_r2d2_agent_module_that_does_not_import():
+    """``--agent_module`` is ported: a dotted name that names no module
+    raises ImportError (before the learner is built)."""
+    with pytest.raises(ImportError):
+        train.main(["--device=cpu", "--agent=r2d2", "--env=discrete_match",
+                    "--agent_module=custom_ppo_composition"])
 
 
 def test_train_main_r2d2_eval_takes_the_greedy_step(monkeypatch):

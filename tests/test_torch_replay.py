@@ -8,11 +8,15 @@ with JAX's draw injected as the indices (rtol 1e-5: float32, one rounding
 of 1/limit apart). The contract checks raise only with debug asserts on.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from seed_rl_tpu.replay import PrioritizedReplay as JaxPrioritizedReplay
 from seed_rl_torch.replay import PrioritizedReplay
@@ -145,3 +149,105 @@ def test_contract_checks_raise_only_when_enabled():
                           2, priority_exp=1.0)
     finally:
         debug_asserts.enable(False)
+
+
+class _IndexDtypes(TorchDispatchMode):
+    """Records the dtype of every tensor operand of an ``aten.index*`` /
+    ``index_put*`` / ``gather`` call made under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name.startswith("index") or name == "gather":
+            for leaf in pytree.tree_leaves((args, kwargs or {})):
+                if isinstance(leaf, torch.Tensor):
+                    self.seen.add((name, leaf.dtype))
+        return func(*args, **(kwargs or {}))
+
+
+def _uint16_operands(mode):
+    return sorted(name for name, dtype in mode.seen if dtype == torch.uint16)
+
+
+def test_uint16_frames_are_gathered_through_their_signed_view():
+    """C6: PyTorch has no CUDA index / index_put for uint16 (the synthetic
+    Football env's packed frames), so every gather of such frames goes
+    through the int16 view: the PPO minibatches and the device replay's
+    sample. No uint16 operand reaches an indexing op, and what comes out
+    is bit for bit the plain gather, top bit included."""
+    from seed_rl_torch import distributions as tpd
+    from seed_rl_torch import optim
+    from seed_rl_torch.agent import PolicyAgent
+    from seed_rl_torch.agents.ppo import learner as ppo
+    from seed_rl_torch.agents.ppo import policy_losses
+    from seed_rl_torch.agents.ppo.generalized_onpolicy_loss import (
+        GeneralizedOnPolicyLoss,
+    )
+    from seed_rl_torch.envs import BatchedEnv
+    from seed_rl_torch.envs.synthetic import SyntheticFootballEnv
+    from seed_rl_torch.models import GFootball
+    from seed_rl_torch.ops.advantages import GAE
+    from seed_rl_torch.ops.popart import PopArt
+    from seed_rl_torch.ops.running_statistics import AverageMeanStd
+    from seed_rl_torch.rollout import RolloutEngine
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        env = BatchedEnv(SyntheticFootballEnv(episode_length=3), 4,
+                         device="cpu")
+        dist = tpd.get_parametric_distribution_for_action_space(
+            env.action_space)
+        net = GFootball(dist.param_size,
+                        tuple(env.observation_spec().shape), device="cpu")
+        agent = PolicyAgent(net, dist)
+        loss = GeneralizedOnPolicyLoss(
+            agent=agent,
+            reward_normalizer=PopArt(AverageMeanStd(), compensate=False),
+            parametric_action_distribution=dist,
+            advantage_estimator=GAE(lambda_=0.95),
+            policy_loss=policy_losses.ppo(epsilon=0.2), discount_factor=0.99)
+        learner = ppo.PPOLearner(
+            RolloutEngine(env, agent, 2, seed=1), agent, loss,
+            ppo.PPOConfig(epochs_per_step=1, batch_mode="split",
+                          batches_per_step=2),
+            functools.partial(optim.ClippedAdam, learning_rate=1e-3,
+                              clip_norm=40.0), seed=2)
+        state = learner.init()
+        with _IndexDtypes() as mode:
+            state, logs = learner.train_step(state)
+        assert all(np.isfinite(float(v)) for v in logs.values())
+        assert _uint16_operands(mode) == []
+
+        rng = np.random.RandomState(0)
+        frames = rng.randint(0, 2 ** 16, (6, 5, 4, 1)).astype(np.uint16)
+        frames[0, 0, 0, 0], frames[3, 1, 2, 0] = 0xFFFF, 0x8000
+        columns = torch.from_numpy(frames[:, None].repeat(3, axis=1))
+        batch = ppo._Batch(agent_state=(), prev_actions=torch.zeros((3, 6)),
+                           env_outputs={"f": columns.transpose(0, 1)},
+                           agent_outputs=())
+        idx = torch.tensor([5, 0, 3, 3])
+        with _IndexDtypes() as mode:
+            taken = batch.take(idx)
+        assert _uint16_operands(mode) == []
+        np.testing.assert_array_equal(
+            taken.env_outputs["f"].numpy(), frames[None, [5, 0, 3, 3]].repeat(
+                3, axis=0))
+        assert taken.env_outputs["f"].dtype == torch.uint16
+
+        replay = PrioritizedReplay(size=8, importance_sampling_exponent=0.6)
+        with _IndexDtypes() as mode:
+            rstate = replay.init_state({"f": torch.from_numpy(frames[0])})
+            rstate, _ = replay.insert(rstate, {"f": torch.from_numpy(frames)},
+                                      torch.arange(1.0, 7.0))
+            indices, _, items = replay.sample(rstate, _generator(0), 16,
+                                              priority_exp=0.9)
+        assert _uint16_operands(mode) == []
+        assert items["f"].dtype == torch.uint16
+        np.testing.assert_array_equal(items["f"].numpy(),
+                                      frames[indices.numpy()])
+    finally:
+        torch.set_num_threads(threads)

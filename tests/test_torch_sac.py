@@ -51,6 +51,7 @@ from seed_rl_torch.envs import (
     BatchedEnv,
     BitFlippingEnv,
     ContinuousCatchEnv,
+    DiscreteMatchEnv,
     TensorSpec,
     ToyEnv,
 )
@@ -104,6 +105,14 @@ CASES = {
     "her_lstm": Case("lstm", "goal", True, "q", her=True),
     "her_mlp_normalized": Case("mlp", "goal", True, "v", her=True,
                                normalize=True),
+    # --env=discrete_match: a one-hot observation, Discrete actions taken
+    # as int32, the categorical actor on the pg path.
+    "discrete_match": Case("mlp", "match", True, "v", -1.0),
+    # --normalize_observations on Catch frames: per-channel statistics.
+    "visual_catch_normalized": Case("visual", "frames", True, "q", -1.0,
+                                    normalize=True),
+    "visual_catch_continuous_normalized": Case(
+        "visual", "frames", False, "q", -1.0, normalize=True),
 }
 FRAMES = dict(rows=6, cols=6, cell_pixels=7)  # 42x42, the torso's least
 
@@ -119,6 +128,8 @@ def _spec(case):
         return TensorSpec((5,), torch.float32)
     if case.obs == "frames":
         return TensorSpec((42, 42, 1), torch.uint8)
+    if case.obs == "match":
+        return DiscreteMatchEnv(N_ACTIONS).observation_spec()
     return {k: TensorSpec((w,), torch.float32)
             for k, w in GOAL_WIDTHS.items()}
 
@@ -137,6 +148,9 @@ def _observation(case, rng, lead):
             balls_done=torch.zeros(n, dtype=torch.int32))
         frames = ContinuousCatchEnv(**FRAMES)._obs_continuous(state)
         return frames.numpy().reshape(lead + (42, 42, 1))
+    if case.obs == "match":
+        return np.eye(N_ACTIONS, dtype=np.float32)[
+            rng.randint(0, N_ACTIONS, lead)]
     obs = {k: (rng.uniform(size=lead + (w,)) < 0.5).astype(np.float32)
            for k, w in GOAL_WIDTHS.items()}
     obs["observation"] = rng.normal(size=lead + (6,)).astype(np.float32)
@@ -233,10 +247,11 @@ class Setup(NamedTuple):
 
 
 def _obs_stats(case, rng, n):
-    """JAX normalizer statistics folded from n random observations."""
-    width = sum(GOAL_WIDTHS.values())
+    """JAX normalizer statistics folded from n random observations, one
+    statistic per last-axis entry (per channel of frames), as JAX sizes
+    them."""
     return jnorm.update_from_observation(
-        jnorm.init(width),
+        jnorm.init(normalizer.observation_width(_spec(case))),
         jax.tree.map(jnp.asarray, _observation(case, rng, (n,))))
 
 
@@ -244,7 +259,8 @@ def _setup(case, rng, B, entropy_cost=0.05):
     jnet, tcls, kw = _nets(case)
     jdist, tdist = _dists(case)
     jagent = jsac.SACAgent(jnet, jdist, normalize_observations=case.normalize)
-    width = sum(GOAL_WIDTHS.values()) if case.normalize else None
+    width = (normalizer.observation_width(_spec(case)) if case.normalize
+             else None)
     agents = [sac.SACAgent(tcls(jdist.param_size, _spec(case), **kw,
                                 device="cpu"), tdist, width)
               for _ in range(2)]
@@ -333,9 +349,16 @@ def _items(case, rng, n, steps, tnet):
     ("mlp_tanh_v", True),
     ("her_lstm", False),
     ("visual_catch", False),
+    ("discrete_match", False),
 ])
 def test_train_on_batch_matches_jax(name, clamp):
-    case = CASES[name]
+    train_on_batch_against_jax(CASES[name], clamp)
+
+
+def train_on_batch_against_jax(case, clamp=False):
+    """One ``train_on_batch`` of the port and of JAX from the same
+    parameters, replay and draws: metrics within TOL, the parameters after
+    Adam within TOL (UPDATED_TOL from frames)."""
     n, batch, unroll, lr, clip = 10, 6, 2, 1e-3, 5.0
     window = 8 if case.her else unroll
     rng = np.random.RandomState(1)
@@ -651,6 +674,10 @@ SMALL = ["--device=cpu", "--num_envs=4", "--unroll_length=2",
       "--normalize_observations"], ActorCriticMLP),
     (["--env=catch", "--target_entropy=auto"], VisualActorCritic),
     (["--env=catch_continuous", "--target_entropy=auto"], VisualActorCritic),
+    (["--env=discrete_match", "--target_entropy=auto"], ActorCriticMLP),
+    (["--env=catch", "--normalize_observations"], VisualActorCritic),
+    (["--env=catch_continuous", "--normalize_observations"],
+     VisualActorCritic),
 ])
 def test_train_main_sac_on_cpu(flags, net):
     learner, state, metrics = train.main(["--agent=sac"] + SMALL + flags)
@@ -672,9 +699,15 @@ def test_train_main_sac_on_cpu(flags, net):
         assert learner.agent.normalize_observations
         assert float(learner.agent.obs_norm.steps) > 0
         assert learner.agent.obs_norm.mean.shape == (10 + 10 + 21,)
+    elif "--normalize_observations" in flags:
+        # One statistic per channel of the frames, as JAX sizes them.
+        spec = learner.engine.env.observation_spec()
+        assert learner.agent.obs_norm.mean.shape == (spec.shape[-1],)
+        assert float(learner.agent.obs_norm.steps) > 0
     if "--lr_decay_multiplier=0.5" in flags:
-        # The 3 updates of the budget: one a step.
-        assert learner.optimizer.transition_steps == 3
+        # The 3 updates of the budget, one a step: the decay ends at 3.
+        lr = learner.optimizer.schedule
+        assert lr(2) > lr(3) == lr(4) == pytest.approx(0.5 * lr(0))
 
 
 @pytest.mark.parametrize("flags,error", [
@@ -684,10 +717,6 @@ def test_train_main_sac_on_cpu(flags, net):
     (["--env=toy", "--update_target_every_n_step=1"], ValueError),
     (["--env=catch", "--sac_net=lstm"], ValueError),
     (["--env=toy", "--replay_buffer_size=8"], ValueError),
-    (["--env=catch", "--normalize_observations"], NotImplementedError),
-    (["--env=catch_continuous", "--normalize_observations"],
-     NotImplementedError),
-    (["--env=discrete_match"], NotImplementedError),
     (["--env=synthetic_atari"], NotImplementedError),
 ])
 def test_train_main_sac_refuses(flags, error):

@@ -203,8 +203,8 @@ def test_clipped_adam_matches_optax_with_linear_schedule():
     opt_state = tx.init(jparams)
     tparams = [torch.nn.Parameter(torch.from_numpy(np.array(p)))
                for p in params]
-    adam = optim.ClippedAdam(tparams, 1e-2, clip_norm=2.0, b1=0.5, eps=1e-6,
-                             end_learning_rate=2e-3, transition_steps=3)
+    adam = optim.ClippedAdam(tparams, optim.linear_schedule(1e-2, 2e-3, 3),
+                             clip_norm=2.0, b1=0.5, eps=1e-6)
     for g in grads:
         updates, opt_state = tx.update([jnp.asarray(x) for x in g],
                                        opt_state, jparams)
@@ -303,8 +303,10 @@ def test_train_main_on_cpu(env):
 
 
 @pytest.mark.parametrize("flag", [
-    "--agent=sac", "--run_mode=learner", "--run_mode=actor",
-    "--agent_module=custom_ppo_composition",
+    # SAC on discrete_match and --agent_module are ported (tests/
+    # test_torch_sac.py, tests/test_torch_agent_module.py); V-trace on
+    # discrete_match is not.
+    "--agent=vtrace", "--run_mode=learner", "--run_mode=actor",
     "--normalize_observations",
 ])
 def test_train_main_refuses_what_is_not_ported(flag):

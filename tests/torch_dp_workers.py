@@ -129,6 +129,32 @@ def gathers(mesh, _):
                        pytree.tree_leaves(layout["rollout"])}))
 
 
+def uint16_frames(mesh, spec):
+    """C6 across ranks: this rank's half of ``spec["frames"]`` (uint16, in
+    rank order) gathered by ``all_gather`` and ``gather_to_host``, then
+    inserted into a replay sharded by slot and sampled at
+    ``spec["indices"]``; the sample's frames, as int16 bits."""
+    from seed_rl_torch.replay import PrioritizedReplay
+
+    frames = torch.from_numpy(spec["frames"]).view(torch.uint16)
+    mine = frames.chunk(mesh.size)[mesh.rank]
+    gathered = mesh.all_gather(mine)
+    hosted = mesh.gather_to_host(mine)
+    replay = PrioritizedReplay(spec["size"], 0.6, mesh=mesh)
+    state = replay.init_state(mine[0])
+    for _ in range(2):  # rank 0's slots, then rank 1's
+        state, _ = replay.insert(state, mine,
+                                 torch.ones(mine.shape[0]).add(mesh.rank))
+    _, _, items = replay.sample(state, None, len(spec["indices"]), 0.9,
+                                indices=torch.from_numpy(spec["indices"]))
+    return dict(
+        dtypes=[str(t.dtype) for t in (gathered, items)],
+        gathered=gathered.view(torch.int16).numpy(),
+        hosted=(hosted.view(torch.int16).numpy() if mesh.rank == 0
+                else str(hosted.device)),
+        sampled=items.view(torch.int16).numpy())
+
+
 def _unroll(tree, env_ids):
     """A numpy unroll (from JAX) as tensors, this rank's env columns."""
     from seed_rl_torch.rollout import Timestep, Unroll
