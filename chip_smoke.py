@@ -134,11 +134,14 @@ Phases, in order; any failure exits non-zero:
      (d) SAC through host_offpolicy_loop on HostToyEnv (this script's numpy
          toy env, Box actions), ActorCriticMLP (256, 256), replay ratio 4,
          3 cycles;
-     (e) (a)'s path with --logdir --checkpoint_replay: 1 cycle (filling
-         the replay), then a resumed call of 1 (training from the restored
-         replay): the restored learner state and replay must equal the
-         saved ones bitwise; the replay's GB and its save and restore
-         seconds are printed.
+     (e) (a)'s path with --logdir --checkpoint_replay and a minimum size
+         of one cycle's items: 1 cycle (filling the replay, then training
+         on it), then a resumed call of 1 (training from the restored
+         replay): the restored learner state (the trained online and
+         target nets, Adam's state, the step) and replay (items, the
+         priorities the batches wrote back, cursors) must equal the saved
+         ones bitwise, and the saved step must be past 0; the replay's GB
+         and its save and restore seconds are printed.
      Each path prints its cycle's ms split into host env stepping, policy
      steps, copies, items, insert, sample wait and train ms per batch,
      env frames/s, launches per cycle, the device idle share over one
@@ -182,7 +185,9 @@ Phases, in order; any failure exits non-zero:
      (b) R2D2 on discrete_match at phase 6's knobs (640 envs with 30 eval:
          rank 1 holds 290 training and 30 eval envs; a 10k-unroll replay,
          5k slots a rank), 2 warm-ups and 2 steps;
-     (c) PPO on the toy env at phase 10's knobs, 1 step;
+     (c) PPO on the toy env at phase 10's knobs but 2 epochs a step (of
+         its 10; each epoch is 32 gloo all-reduces through the host), 1
+         step;
      (d) SAC on catch_continuous at phase 12's knobs, 2 steps.
      Each must match the one-rank run (the parameters within 2e-3 of their
      movement, every metric within rtol 1e-4 / atol 1e-5), hold its
@@ -237,14 +242,39 @@ Phases, in order; any failure exits non-zero:
          seed_rl_torch.tools.soak_r2d2_replay) at 2000 unrolls for 10 s,
          its JSON line printed: one n-step launch for its items and one a
          train batch, B2 on its last batch against its plain version;
- 20. print the V-trace and n-step launches of each path, and the kernels
+ 20. the measurement tools of seed_rl_torch/tools/, in a child process of
+     this script (a fresh profiler: after phases 14-19's traces, this
+     process's recorded part of a row's kernels), each through its main
+     on the card, in this order, at reduced sizes (TOOLS_ARGS), the launch
+     counts reset just before each, printing each tool's lines and
+     seconds: bench_r2d2 (64 envs x 80, 1 call), bench_football (256 x
+     32, 2 calls), sweep_bench (256 x 32 x 1 and 1024 x 32 x 2),
+     profile_bench (256 x 32), profile_torso (T 32, B 256),
+     profile_impala (64 x 32), exp_pool_vjp (2112 frames, the step at 64
+     x 32) and exp_bwd_decomp (2112 frames), profile_ppo_atari (64 x 4)
+     and profile_sac_visual (torso batches 256 and 8448, sweep 128 x 2
+     and 256 x 4), 1 iteration a row;
+     bench_batcher (64 clients, batch 128, 2 s), bench_fleet (1 and 2
+     actors of 8 synthetic_atari_host envs, 2560 frames each) and
+     bench_scaling (1 and 2 gloo ranks on cuda:0, the mlp model, 2
+     calls). Every rate must be finite and > 0 and each tool's profiled
+     rows must have a device time (one or two short kernels may record
+     none; those rows are named); profile_impala's mfu against the H100's
+     bf16 peak must lie in (0, 1); exp_pool_vjp's two pools must give
+     equal outputs and input gradients within 1e-5; bench_scaling's
+     summary must carry the JAX script's keys and the shared-card note.
+     One V-trace launch per train step, update or loss and one n-step
+     launch per insert and per batch in this process (TOOLS_LAUNCHES); B1
+     on the first unroll of each V-trace tool and B2 on bench_r2d2's last
+     batch against their plain versions within phase 3's limits;
+ 21. print the V-trace and n-step launches of each path, and the kernels
      line (JSON): for each kernel, at its main-path shape, the wrapper's ms
      per call, the kernel's device-only ms, the plain version's ms, the
      bound and the launch floor (the V-trace kernel: [32, 1024], and the
      Catch path's [20, 256] under "catch"; the n-step kernel: the loss
      shape, and the insert shape under "insert"); V-trace's launches are
-     those of all three V-trace paths and of phases 14's to 19's, the
-     n-step kernel's those of both R2D2 paths and of phases 14's to 19's,
+     those of all three V-trace paths and of phases 14's to 20's, the
+     n-step kernel's those of both R2D2 paths and of phases 14's to 20's,
      with phase 17's shapes on the ranks under "scale_out_shapes".
      The PPO and SAC paths launch neither kernel: the PPO advantage
      estimators are plain PyTorch and SAC has no recursion over time, as
@@ -1568,10 +1598,13 @@ def run_checkpoint_paths(smi):
 # and 9 on host envs; the replay in host RAM at phase 9's 10k unrolls, cut
 # to the largest multiple of 1000 that fits a quarter of MemAvailable.
 # A call runs HOST_R2D2_CYCLES cycles: the minimum size is one cycle's
-# items + 1, so the first cycle only fills the replay.
-HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 2, 2, 64
+# items + 1, so the first cycle only fills the replay. The resume path's
+# minimum is one cycle's items: its first cycle fills the replay and
+# trains, so the state it saves is a trained one.
+HOST_R2D2_CYCLES, HOST_RESUME_CYCLES, HOST_R2D2_BATCH = 2, 1, 64
 HOST_R2D2_TRAINING = R2D2_ENVS - R2D2_EVAL_ENVS
 HOST_R2D2_MIN = HOST_R2D2_TRAINING + 1
+HOST_RESUME_MIN = HOST_R2D2_TRAINING
 HOST_REPLAY_RATIO = 0.75  # the JAX CLI's default
 HOST_REPLAY_UNROLLS = 10_000
 # One replay item at that shape: 121 steps of an 84x84 uint8 frame, int32
@@ -1858,7 +1891,7 @@ class HostTimer:
         return cycle_ms
 
 
-def _host_r2d2_argv(replay_unrolls, cycles):
+def _host_r2d2_argv(replay_unrolls, cycles, min_size=HOST_R2D2_MIN):
     return [
         "--agent=r2d2", "--env=synthetic_atari_host",
         f"--num_envs={R2D2_ENVS}", f"--num_eval_envs={R2D2_EVAL_ENVS}",
@@ -1866,7 +1899,7 @@ def _host_r2d2_argv(replay_unrolls, cycles):
         f"--batch_size={HOST_R2D2_BATCH}", "--n_steps=5",
         "--discounting=0.997", "--learning_rate=1e-4", "--clip_norm=80",
         f"--replay_buffer_size={replay_unrolls}",
-        f"--replay_buffer_min_size={HOST_R2D2_MIN}",
+        f"--replay_buffer_min_size={min_size}",
         f"--replay_ratio={HOST_REPLAY_RATIO}",
         f"--total_environment_frames={cycles * R2D2_ENVS * R2D2_UNROLL}",
         "--log_every_steps=1",
@@ -2127,7 +2160,8 @@ def run_host_resume(smi, replay_unrolls, logdir):
     name = "host r2d2 resume"
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    argv = _host_r2d2_argv(replay_unrolls, HOST_RESUME_CYCLES) + [
+    argv = _host_r2d2_argv(replay_unrolls, HOST_RESUME_CYCLES,
+                           HOST_RESUME_MIN) + [
         f"--logdir={logdir}", "--checkpoint_replay"]
     frames = R2D2_ENVS * R2D2_UNROLL
     _reset_launch_counts()
@@ -2135,6 +2169,9 @@ def run_host_resume(smi, replay_unrolls, logdir):
         learner, state, _ = train.main(argv)
         torch.cuda.synchronize()
     launches = [_launches()]
+    if state.step == 0:
+        raise RuntimeError(f"{name}: nothing trained before the save: a "
+                           "fresh learner would equal the saved state")
     saved = ckpt.to_saveable(learner.checkpoint_state(state))
     saved_replay = first.replay
     del learner
@@ -2185,7 +2222,7 @@ def run_host_resume(smi, replay_unrolls, logdir):
                                   f"{name}: the restored learner state")
     want = [
         _owed_batches(HOST_RESUME_CYCLES, HOST_R2D2_TRAINING,
-                      HOST_R2D2_BATCH, HOST_REPLAY_RATIO, HOST_R2D2_MIN,
+                      HOST_R2D2_BATCH, HOST_REPLAY_RATIO, HOST_RESUME_MIN,
                       replay_unrolls),
         # Restored full enough to train from the first cycle; the owed
         # carry starts at 0 again, as in the JAX package.
@@ -2902,6 +2939,9 @@ def run_remote_paths(smi, device):
 # learner in a one-rank NCCL group, whose all-reduce calls its profile
 # shows.
 SCALE_OUT_RANKS = 2
+# PPO's epochs a step here (phase 10 runs 10): each minibatch step is one
+# all-reduce through the host, ~30 ms on two ranks.
+SCALE_OUT_PPO_EPOCHS = 2
 
 
 class ScaleOutPath(NamedTuple):
@@ -2932,7 +2972,7 @@ def _scale_out_paths():
         "ppo toy": ScaleOutPath((
             "--agent=ppo", *ppo.flags, f"--num_envs={ppo.envs}",
             f"--unroll_length={ppo.unroll}",
-            f"--epochs_per_step={ppo.epochs}",
+            f"--epochs_per_step={SCALE_OUT_PPO_EPOCHS}",
             f"--batches_per_step={ppo.minibatches}",
             f"--total_environment_frames={ppo_steps * ppo.envs * ppo.unroll}",
             "--steps_per_call=1", "--log_every_steps=1"), "ppo", ppo_steps,
@@ -4080,6 +4120,191 @@ def run_last_branches(smi, device):
     return vtrace, nstep, vtrace_err, nstep_err
 
 
+# Phase 20: the measurement tools of seed_rl_torch/tools/, each through
+# its main on the card, in ROADMAP's order, at the sizes below: fewer
+# envs, frames, calls and iterations than their defaults, and smaller
+# sweeps (their full sizes: PERF.md section 5).
+TOOLS_ITERS = "--iters=1"
+TOOLS_ARGS = (
+    ("bench_r2d2", ["--num_envs=64", "--calls=1"]),
+    ("bench_football", ["256", "32", "--calls=2"]),
+    ("sweep_bench", ["256,32,1", "1024,32,2", "--calls=2"]),
+    ("profile_bench", ["--num_envs=256", TOOLS_ITERS]),
+    ("profile_torso", ["--B=256", TOOLS_ITERS]),
+    ("profile_impala", ["--envs=64", TOOLS_ITERS]),
+    ("exp_pool_vjp", ["--n=2112", "--envs=64", TOOLS_ITERS]),
+    ("exp_bwd_decomp", ["--n=2112", TOOLS_ITERS]),
+    ("profile_ppo_atari", ["--num_envs=64", "--unroll=4", "--iters=1"]),
+    ("profile_sac_visual", [TOOLS_ITERS, "--torso_batches=256,8448",
+                            "--sweep=128x2,256x4"]),
+    ("bench_batcher", ["64", "128", "2"]),
+    ("bench_fleet", ["2560", "1,2", "--env=synthetic_atari_host",
+                     "--warmup_frames=0"]),
+    ("bench_scaling", ["--replicas=1,2", "--backend=gloo", "--calls=2"]),
+)
+# One V-trace launch a train step, update or loss; one n-step launch an
+# insert and a batch. A profiled row runs a warm-up call, its iterations
+# and two traced calls. bench_fleet's learner launches in its own process
+# and bench_scaling's rank 1 in its own: neither is counted here.
+_ROW = 1 + 1 + 2  # warm-up + --iters=1 + the two traced calls
+TOOLS_LAUNCHES = {
+    "bench_r2d2": (0, 1 + 2 * (1 + 1)),
+    "bench_football": (1 + 2, 0),
+    "sweep_bench": ((1 + 2) * 1 + (1 + 2) * 2, 0),
+    "profile_bench": (4 * _ROW, 0),
+    "profile_impala": (4 * _ROW, 0),
+    "exp_pool_vjp": (2 * _ROW, 0),
+    # Rank 0 of one rank, then of two: (warm-up + 2 calls) x 2 steps.
+    "bench_scaling": (2 * (1 + 2) * 2, 0),
+}
+TOOLS_POOL_GRAD_TOL = 1e-5
+
+
+def _positive_rates(name, *rates):
+    if not all(r is not None and math.isfinite(r) and r > 0 for r in rates):
+        raise RuntimeError(f"tool {name}: rates {rates}")
+
+
+def _rows_measured(name, rows):
+    """Every row's rate is positive, and the profiler saw the device's
+    work on the tool's rows (a row of one or two short kernels may record
+    none: its device time is then not measured and is named here)."""
+    rows = list(rows)
+    for row in rows:
+        _positive_rates(name, row.ms, *([row.fps] if row.fps else []))
+    missing = [row.name for row in rows if row.busy_ms is None]
+    if len(missing) == len(rows):
+        raise RuntimeError(f"tool {name}: no row has a device time")
+    if missing:
+        print(f"tool {name}: device time not measured on {missing}")
+
+
+def _check_tool(name, result):
+    """The checks of one tool's result on the card (phase 20)."""
+    from seed_rl_torch.tools import bench_scaling
+
+    if name == "bench_r2d2":
+        if result["metric"] != "r2d2_atari_env_frames_per_sec_per_chip":
+            raise RuntimeError(f"tool {name}: {result}")
+        _positive_rates(name, result["value"])
+    elif name == "bench_football":
+        _positive_rates(name, result["value"], result["ms_per_step"])
+    elif name == "sweep_bench":
+        _positive_rates(name, *result.values())
+    elif name in ("profile_bench", "profile_torso"):
+        _rows_measured(name, result["rows"])
+    elif name == "profile_impala":
+        _rows_measured(name, [*result["stages"].values(),
+                              *result["torso"].values()])
+        if not 0 < result["mfu"] < 1 or result["peak"] != "bf16":
+            raise RuntimeError(f"tool {name}: mfu {result['mfu']} against "
+                               f"the {result['peak']} peak")
+    elif name == "exp_pool_vjp":
+        _rows_measured(name, [*result["pool"].values(),
+                              *result["torso"].values(),
+                              *result["train_step"].values()])
+        for shape, agreement in result["agreement"].items():
+            if not (agreement["outputs_equal"] and agreement[
+                    "grad_max_abs_diff"] <= TOOLS_POOL_GRAD_TOL):
+                raise RuntimeError(f"tool {name}: the arms differ at "
+                                   f"{shape}: {agreement}")
+    elif name == "exp_bwd_decomp":
+        _rows_measured(name, result["rows"].values())
+    elif name == "profile_ppo_atari":
+        _rows_measured(name, result["rows"].values())
+    elif name == "profile_sac_visual":
+        _rows_measured(name, [*result["stages"].values(),
+                              *result["torso"].values(),
+                              *result["sweep"].values()])
+        _positive_rates(name, *result["accounting"].values())
+    elif name == "bench_batcher":
+        _positive_rates(name, result["calls_per_sec"],
+                        result["batches_per_sec"], result["mean_fill"])
+    elif name == "bench_fleet":
+        if [line["actors"] for line in result] != [1, 2]:
+            raise RuntimeError(f"tool {name}: {result}")
+        for line in result:
+            if line["platform"] != "cuda":
+                raise RuntimeError(f"tool {name}: {line}")
+            _positive_rates(name, line["value"], line["batcher_mean_fill"],
+                            line["window_secs"])
+    elif name == "bench_scaling":
+        keys = {"metric", "value", "unit", "platform", "frames_per_sec",
+                "note", "card"}
+        if (set(result) != keys
+                or result["metric"] != "scaling_efficiency_1_to_2_replicas"
+                or result["note"] != bench_scaling.SHARED_CARD_NOTE):
+            raise RuntimeError(f"tool {name}: {result}")
+        _positive_rates(name, result["value"],
+                        *result["frames_per_sec"].values())
+
+
+def run_tools(smi):
+    """Phase 20 (each tool on the card, its default); returns (B1
+    launches, B2 launches, B1 max err, B2 max err)."""
+    import importlib
+
+    launches = {}
+    with BenchRecorder() as recorder:
+        for name, argv in TOOLS_ARGS:
+            tool = importlib.import_module(f"seed_rl_torch.tools.{name}")
+            recorder.workload = name
+            # The earlier tools' cached memory back to the card: bench_fleet
+            # and bench_scaling start processes that need it.
+            torch.cuda.empty_cache()
+            _reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            print(f"--- tool {name} {' '.join(argv)}", flush=True)
+            result = tool.main(argv)
+            torch.cuda.synchronize()
+            launches[name] = tuple(_launches().values())
+            _check_tool(name, result)
+            print(f"tool {name}: {time.perf_counter() - t0:.1f} s, launches "
+                  f"(vtrace, nstep) {launches[name]}, peak "
+                  f"{_peak_memory_gb():.3f} GB ({smi})", flush=True)
+    for name, got in launches.items():
+        want = TOOLS_LAUNCHES.get(name, (0, 0))
+        if got != want:
+            raise RuntimeError(f"tool {name}: launches (vtrace, nstep) "
+                               f"{got}, want {want}")
+    if set(recorder.vtrace) != {n for n, (v, _) in TOOLS_LAUNCHES.items()
+                                if v}:
+        raise RuntimeError(f"tools: V-trace inputs of {set(recorder.vtrace)}")
+    vtrace_err = max(_check_vtrace_inputs(
+        f"tool {name}: vtrace on its own unroll", kwargs)
+        for name, (_, kwargs) in recorder.vtrace.items())
+    nstep_err = _check_bench_nstep("bench_r2d2 tool",
+                                   *recorder.nstep["bench_r2d2"])
+    return (sum(v for v, _ in launches.values()),
+            sum(n for _, n in launches.values()), vtrace_err, nstep_err)
+
+
+def run_tools_in_child(smi):
+    """Phase 20 in a child process of this script, whose rows start from a
+    fresh profiler: in this process, after the traces of phases 14-19,
+    torch.profiler recorded part of a row's kernels, or none. Returns the
+    child's ``run_tools`` result (its launches counted there, each count
+    reset just before each tool). This process first hands its cached
+    device memory back: the child and the fleet's learner process need
+    the card's memory beside it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20: this process keeps "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB of device memory "
+          "reserved beside the tools' process", flush=True)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--tools", smi],
+        stdout=subprocess.PIPE, text=True, timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 20's process exited {proc.returncode}")
+    return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
 def _rollout_and_update(learner):
     """An on-policy train step's two halves: the rollout, then the update
     on its unroll."""
@@ -4249,6 +4474,13 @@ def main():
     nstep_err = max(nstep_err, nstep_last_err)
     print(f"phase 19 (the last CLI branches and tooling) took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (vtrace_launches["tools"], nstep_launches["tools"], vtrace_tools_err,
+     nstep_tools_err) = run_tools_in_child(smi)
+    vtrace_err = max(vtrace_err, vtrace_tools_err)
+    nstep_err = max(nstep_err, nstep_tools_err)
+    print(f"phase 20 (the measurement tools) took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"vtrace launches per path: {vtrace_launches} (one per train "
           f"step); nstep launches per path: {nstep_launches} (one per insert "
           f"and per train batch); PPO paths: {ppo_launches}; SAC paths: "
@@ -4292,4 +4524,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tools"]:  # phase 20's process
+        print(json.dumps(run_tools(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

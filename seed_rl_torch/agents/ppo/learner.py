@@ -76,6 +76,7 @@ class PPOConfig:
     epochs_per_step: int = 1
     batch_mode: str = "split"
     batches_per_step: int = 1
+    num_action_repeats: int = 1
 
 
 class PPOTrainState(NamedTuple):
@@ -175,7 +176,8 @@ class PPOLearner:
         self.optimizer = optimizer(self.parameters())
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.frames_per_step = engine.unroll_length * num_envs
+        self.frames_per_step = (engine.unroll_length * num_envs
+                                * config.num_action_repeats)
         # The in-memory snapshots ``learner_loop`` takes at its action
         # points (``utils/action_points.LearnerState``).
         self.snapshots = []

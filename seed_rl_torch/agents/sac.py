@@ -173,6 +173,7 @@ class SACConfig:
     unroll_length: int = 1  # training unroll (cut from windows under HER)
     her_window_length: Optional[int] = None
     her_substitution_probability: float = 0.8
+    num_action_repeats: int = 1
 
 
 class StoredUnroll(NamedTuple):
@@ -520,7 +521,7 @@ class SACLearner(SACUpdate):
         self.engine = engine
         self.num_envs = engine.env.num_envs
         self.frames_per_step = (engine.unroll_length * self.num_envs
-                                * mesh.size)
+                                * mesh.size * config.num_action_repeats)
 
     def state_tensors(self, state: SACTrainState) -> List[torch.Tensor]:
         """The train state's tensors, the target net's and the observation
@@ -669,7 +670,8 @@ class SACHostLearner(SACUpdate):
         self.num_envs = num_envs
         self.num_training_envs = num_envs  # SAC has no dedicated eval envs
         self.unroll_length = unroll_length
-        self.frames_per_cycle = unroll_length * num_envs
+        self.frames_per_cycle = (unroll_length * num_envs
+                                 * config.num_action_repeats)
         self.priority_exponent = 0.0  # uniform replay
         self.batch_size = config.batch_size
 

@@ -23,8 +23,8 @@ names and in its order, the R2D2 line last:
 6. ``vtrace_atari_env_frames_per_sec_per_chip``: AtariPolicyNet (LSTM 256)
    in bf16 over 84x84 frames, V-trace, 2 train steps a call.
 7. ``scaling_efficiency_1_to_N_replicas``: only with two or more CUDA
-   devices; on one card it prints nothing, as ``bench.py`` does on one chip
-   (the multi-card harness is still to be ported).
+   devices, through ``tools/bench_scaling.py`` (one rank per card, NCCL);
+   on one card it prints nothing, as ``bench.py`` does on one chip.
 8. ``r2d2_atari_env_frames_per_sec_per_chip``: R2D2 at the reference cloud
    shape (640 envs, unroll 80, burn-in 40, batch 64, prioritized replay of
    1280 unrolls, target net), DuelingLSTMDQNNet with its torso and LSTM in
@@ -126,19 +126,28 @@ def _windows(windows):
     return NUM_WINDOWS if windows is None else windows
 
 
-def bench_vtrace(device, num_envs=1024, calls=8, windows=None):
+def vtrace_atari_learner(device, num_envs=1024, unroll_length=32,
+                         mesh=None):
+    """V-trace with the bf16 AtariPolicyNet (LSTM 256) on synthetic 84x84
+    Atari frames, 18 actions (``bench.py::build_learner``); ``mesh``: this
+    rank's share of the envs (``seed_rl_torch.parallel``)."""
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.envs import BatchedEnv
     from seed_rl_torch.envs.synthetic import SyntheticAtariEnv
     from seed_rl_torch.models import AtariPolicyNet
 
-    unroll_length, steps_per_call, num_actions = 32, 2, 18
+    num_actions = 18
     env = BatchedEnv(SyntheticAtariEnv(num_actions=num_actions), num_envs,
-                     device=device)
+                     device=device, mesh=mesh)
     dist = pd.CategoricalDistribution(num_actions)
     net = AtariPolicyNet(dist.param_size, stack_size=4, lstm_size=256,
                          dtype=torch.bfloat16, seed=0, device=device)
-    learner = _vtrace_learner(env, net, dist, unroll_length)
+    return _vtrace_learner(env, net, dist, unroll_length)
+
+
+def bench_vtrace(device, num_envs=1024, calls=8, windows=None):
+    unroll_length, steps_per_call, num_actions = 32, 2, 18
+    learner = vtrace_atari_learner(device, num_envs, unroll_length)
     fps, spread = _measure(
         _train_many(learner, steps_per_call), learner.init(),
         steps_per_call * num_envs * unroll_length, calls, _windows(windows),
@@ -150,14 +159,19 @@ def bench_vtrace(device, num_envs=1024, calls=8, windows=None):
                  fpf)
 
 
-def bench_r2d2(device, num_envs=640, calls=8, windows=None):
+def r2d2_atari_learner(device, num_envs=640, unroll=80, burn_in=40,
+                       replay_buffer_size=1280, batch_size=64):
+    """R2D2 with the bf16 DuelingLSTMDQNNet on synthetic 84x84 Atari
+    frames, 18 actions: n 5, a replay of ``replay_buffer_size`` unrolls
+    with a minimum of 8, the target net every 2500 batches, Adam 1e-4
+    clipped at 80 (the reference cloud shape's knobs)."""
     from seed_rl_torch.agents import r2d2
     from seed_rl_torch.envs import BatchedEnv
     from seed_rl_torch.envs.synthetic import SyntheticAtariEnv
     from seed_rl_torch.models import DuelingLSTMDQNNet
     from seed_rl_torch.rollout import RolloutEngine
 
-    unroll, burn_in, num_actions = 80, 40, 18
+    num_actions = 18
     env = BatchedEnv(SyntheticAtariEnv(num_actions=num_actions), num_envs,
                      device=device)
     net = DuelingLSTMDQNNet(num_actions, dtype=torch.bfloat16,
@@ -166,14 +180,25 @@ def bench_r2d2(device, num_envs=640, calls=8, windows=None):
     engine = RolloutEngine(env, agent, unroll, num_overlapping_steps=burn_in,
                            seed=1)
     config = r2d2.R2D2Config(
-        n_steps=5, burn_in=burn_in, replay_buffer_size=1280,
-        replay_buffer_min_size=8, batch_size=64,
+        n_steps=5, burn_in=burn_in, replay_buffer_size=replay_buffer_size,
+        replay_buffer_min_size=8, batch_size=batch_size,
         update_target_every_n_step=2500)
-    learner = r2d2.R2D2Learner(engine, agent, config, _adam(1e-4, 80.0),
-                               seed=2)
+    return r2d2.R2D2Learner(engine, agent, config, _adam(1e-4, 80.0), seed=2)
+
+
+def warm_replay(learner):
+    """A fresh train state with the replay filled to its minimum."""
     state = learner.init()
-    while state.replay.num_inserted < config.replay_buffer_min_size:
+    while state.replay.num_inserted < learner.config.replay_buffer_min_size:
         state = learner.warmup_step(state)
+    return state
+
+
+def bench_r2d2(device, num_envs=640, calls=8, windows=None):
+    unroll, burn_in, num_actions = 80, 40, 18
+    learner = r2d2_atari_learner(device, num_envs, unroll, burn_in)
+    config = learner.config
+    state = warm_replay(learner)
     fps, spread = _measure(_train_many(learner, 1), state,
                            num_envs * unroll, calls, _windows(windows),
                            device)
@@ -251,19 +276,28 @@ def bench_ppo(device, num_envs=1024, calls=8, windows=None):
                  tracking=True)
 
 
-def bench_dmlab_vtrace(device, num_envs=256, calls=8, windows=None):
+def dmlab_vtrace_learner(device, num_envs=256, unroll_length=32,
+                         remat=False):
+    """V-trace with the bf16 ImpalaDeep (``remat``: its torso recomputed in
+    the backward) on synthetic 72x96x3 DmLab frames, 9 actions."""
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.envs import BatchedEnv
     from seed_rl_torch.envs.synthetic import SyntheticDmLabEnv
     from seed_rl_torch.models import ImpalaDeep
 
-    unroll_length, steps_per_call, num_actions = 32, 1, 9
+    num_actions = 9
     env = BatchedEnv(SyntheticDmLabEnv(num_actions=num_actions), num_envs,
                      device=device)
     dist = pd.CategoricalDistribution(num_actions)
     net = ImpalaDeep(num_actions, tuple(env.observation_spec().shape),
-                     dtype=torch.bfloat16, seed=0, device=device)
-    learner = _vtrace_learner(env, net, dist, unroll_length)
+                     remat=remat, dtype=torch.bfloat16, seed=0,
+                     device=device)
+    return _vtrace_learner(env, net, dist, unroll_length)
+
+
+def bench_dmlab_vtrace(device, num_envs=256, calls=8, windows=None):
+    unroll_length, steps_per_call, num_actions = 32, 1, 9
+    learner = dmlab_vtrace_learner(device, num_envs, unroll_length)
     fps, spread = _measure(
         _train_many(learner, steps_per_call), learner.init(),
         steps_per_call * num_envs * unroll_length, calls, _windows(windows),
@@ -274,7 +308,11 @@ def bench_dmlab_vtrace(device, num_envs=256, calls=8, windows=None):
                  fpf)
 
 
-def bench_ppo_atari(device, num_envs=512, calls=8, windows=None):
+def ppo_atari_learner(device, num_envs=512, unroll_length=32,
+                      batch_mode="shuffle", epochs=2, batches=8):
+    """Conv PPO: the bf16 AtariPolicyNet (LSTM 256) on synthetic 84x84
+    Atari frames, GAE 0.95, PPO clip 0.2, PopArt, entropy 0.01, Adam 3e-4
+    clipped at 0.5, ``epochs`` x ``batches`` minibatches a step."""
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agent import PolicyAgent
     from seed_rl_torch.agents.ppo import policy_losses
@@ -293,7 +331,7 @@ def bench_ppo_atari(device, num_envs=512, calls=8, windows=None):
     from seed_rl_torch.ops.running_statistics import AverageMeanStd
     from seed_rl_torch.rollout import RolloutEngine
 
-    unroll_length, steps_per_call, num_actions = 32, 1, 18
+    num_actions = 18
     env = BatchedEnv(SyntheticAtariEnv(num_actions=num_actions), num_envs,
                      device=device)
     dist = pd.CategoricalDistribution(num_actions)
@@ -311,10 +349,15 @@ def bench_ppo_atari(device, num_envs=512, calls=8, windows=None):
         baseline_cost=1.0,
     )
     engine = RolloutEngine(env, agent, unroll_length, seed=1)
-    config = PPOConfig(epochs_per_step=2, batch_mode="shuffle",
-                       batches_per_step=8)
-    learner = PPOLearner(engine, agent, loss, config, _adam(3e-4, 0.5),
-                         seed=2)
+    config = PPOConfig(epochs_per_step=epochs, batch_mode=batch_mode,
+                       batches_per_step=batches)
+    return PPOLearner(engine, agent, loss, config, _adam(3e-4, 0.5), seed=2)
+
+
+def bench_ppo_atari(device, num_envs=512, calls=8, windows=None):
+    unroll_length, steps_per_call, num_actions = 32, 1, 18
+    learner = ppo_atari_learner(device, num_envs, unroll_length)
+    config = learner.config
     fps, spread = _measure(
         _train_many(learner, steps_per_call), learner.init(),
         steps_per_call * num_envs * unroll_length, calls, _windows(windows),
@@ -327,14 +370,18 @@ def bench_ppo_atari(device, num_envs=512, calls=8, windows=None):
     return _emit("ppo_atari_env_frames_per_sec_per_chip", fps, spread, fpf)
 
 
-def bench_sac_visual(device, num_envs=512, calls=8, windows=None):
+def sac_visual_learner(device, num_envs=512, unroll=2, batch_size=1024,
+                       minibatches=4, replay_buffer_size=16384):
+    """Visual SAC on the on-device continuous Catch env: VisualActorCritic
+    with its conv torso in bf16 and 2 critics, a replay with a minimum of
+    8, ``minibatches`` batches a step, polyak 0.995 each, Adam 3e-4
+    clipped at 40."""
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.agents import sac
     from seed_rl_torch.envs import BatchedEnv, ContinuousCatchEnv
     from seed_rl_torch.models import VisualActorCritic
     from seed_rl_torch.rollout import RolloutEngine
 
-    unroll, steps_per_call = 2, 4
     env = BatchedEnv(ContinuousCatchEnv(), num_envs, device=device)
     dist = pd.get_parametric_distribution_for_action_space(env.action_space)
     net = VisualActorCritic(dist.param_size, env.observation_spec(),
@@ -342,14 +389,19 @@ def bench_sac_visual(device, num_envs=512, calls=8, windows=None):
                             device=device)
     agent = sac.SACAgent(net, dist)
     config = sac.SACConfig(
-        batch_size=1024, train_batches_per_step=4, replay_buffer_size=16384,
-        replay_buffer_min_size=8, unroll_length=unroll, polyak=0.995)
+        batch_size=batch_size, train_batches_per_step=minibatches,
+        replay_buffer_size=replay_buffer_size, replay_buffer_min_size=8,
+        unroll_length=unroll, polyak=0.995)
     engine = RolloutEngine(env, agent, unroll, seed=1)
-    learner = sac.SACLearner(engine, agent, config, _adam(3e-4, 40.0),
-                             seed=2)
-    state = learner.init()
-    while state.replay.num_inserted < config.replay_buffer_min_size:
-        state = learner.warmup_step(state)
+    return sac.SACLearner(engine, agent, config, _adam(3e-4, 40.0), seed=2)
+
+
+def bench_sac_visual(device, num_envs=512, calls=8, windows=None):
+    unroll, steps_per_call = 2, 4
+    learner = sac_visual_learner(device, num_envs, unroll)
+    config, env = learner.config, learner.engine.env
+    dist = learner.agent.distribution
+    state = warm_replay(learner)
     fps, spread = _measure(
         _train_many(learner, steps_per_call), state,
         steps_per_call * num_envs * unroll, calls, _windows(windows), device)
@@ -364,18 +416,25 @@ def bench_sac_visual(device, num_envs=512, calls=8, windows=None):
                  fpf, tracking=True)
 
 
-def bench_football(device, num_envs=256, calls=8, windows=None):
+def football_vtrace_learner(device, num_envs=256, unroll_length=32):
+    """V-trace with the bf16 GFootball resnet over bit-packed 72x96 SMM
+    frames of the synthetic Football env, unpacked on the device."""
     from seed_rl_torch import distributions as pd
     from seed_rl_torch.envs import BatchedEnv
     from seed_rl_torch.envs.synthetic import SyntheticFootballEnv
     from seed_rl_torch.models import GFootball
 
-    unroll_length = 32
     env = BatchedEnv(SyntheticFootballEnv(), num_envs, device=device)
     dist = pd.CategoricalDistribution(19)
     net = GFootball(dist.param_size, tuple(env.observation_spec().shape),
                     dtype=torch.bfloat16, seed=0, device=device)
-    learner = _vtrace_learner(env, net, dist, unroll_length)
+    return _vtrace_learner(env, net, dist, unroll_length)
+
+
+def bench_football(device, num_envs=256, calls=8, windows=None):
+    unroll_length = 32
+    learner = football_vtrace_learner(device, num_envs, unroll_length)
+    dist = learner.agent.distribution
     fps, spread = _measure(_train_many(learner, 1), learner.init(),
                            num_envs * unroll_length, calls,
                            _windows(windows), device)
@@ -387,14 +446,30 @@ def bench_football(device, num_envs=256, calls=8, windows=None):
 
 def bench_scaling(device, num_envs=256, calls=4, windows=None):
     """Weak scaling across cards: prints nothing with fewer than two CUDA
-    devices, as ``bench.py`` does on one chip. With more, the multi-card
-    harness (``scripts/bench_scaling.py``'s counterpart) is not ported
-    yet: it says so on stderr and prints no line."""
-    del num_envs, calls, windows
-    if device.type == "cuda" and torch.cuda.device_count() >= 2:
-        print("scaling_efficiency_1_to_N_replicas: the multi-card harness "
-              "is not ported yet; no line", file=sys.stderr)
-    return None
+    devices, as ``bench.py`` does on one chip. With more, it runs the
+    multi-card harness (``tools/bench_scaling.py``, NCCL, a rank per card)
+    at ``bench.py``'s shape: V-trace x AtariPolicyNet, ``num_envs`` envs a
+    replica, unroll 32, 2 steps a call, ``calls`` calls, at 1, 2, 4, ...
+    replicas up to the card count; its line has ``bench.py``'s keys,
+    ``vs_baseline`` null as on every line."""
+    del windows
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from seed_rl_torch.tools import bench_scaling as harness
+
+    replicas, n = [], 1
+    while n <= torch.cuda.device_count():
+        replicas.append(n)
+        n *= 2
+    results = harness.measure_all(
+        "atari", replicas, envs_per_replica=num_envs, unroll=32,
+        steps_per_call=2, calls=calls, backend="nccl", device="cuda")
+    n_max = replicas[-1]
+    eff = results[n_max] / (results[1] * n_max)
+    line = {"metric": f"scaling_efficiency_1_to_{n_max}_replicas",
+            "value": eff, "unit": "fraction", "vs_baseline": None}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 # main's order: tracking lines first, the R2D2 line last (bench.py's).

@@ -174,3 +174,49 @@ def sac_visual_flops_per_env_frame(
     )
     rollout = env_frames_per_step * (comp["torso"] + comp["actor"])
     return (rollout + minibatches * per_mb) / env_frames_per_step
+
+
+def impala_flops_per_frame(h=72, w=96, cin=3,
+                           stacks=((16, 2), (32, 2), (32, 2)),
+                           dense_out=256, lstm=256, num_actions=9):
+    """Forward FLOPs per frame of ImpalaDeep and their split, ``(total,
+    {"stack<i>(<ch>ch)", "dense", "lstm", "heads": FLOPs})``: the model of
+    ``scripts/profile_impala.py``, which ``impala_deep`` sums the same
+    way (SAME 3x3 convs, the downscale conv at the stack's input
+    resolution)."""
+    total = 0
+    detail = {}
+    x_h, x_w, c = h, w, cin
+    for i, (ch, blocks) in enumerate(stacks):
+        f = conv2d(x_h, x_w, c, ch, 3)  # downscale conv (pre-pool)
+        x_h, x_w = (x_h + 1) // 2, (x_w + 1) // 2
+        f += blocks * 2 * conv2d(x_h, x_w, ch, ch, 3)
+        detail[f"stack{i}({ch}ch)"] = f
+        total += f
+        c = ch
+    detail["dense"] = dense(x_h * x_w * c, dense_out)
+    # 4 gates over [torso, reward, one-hot action] and the hidden state.
+    detail["lstm"] = 4 * (dense_out + 1 + num_actions + lstm) * lstm * 2
+    detail["heads"] = dense(lstm, num_actions + 1)
+    total += detail["dense"] + detail["lstm"] + detail["heads"]
+    return total, detail
+
+
+def impala_hbm_bytes_per_frame(h=72, w=96, cin=3,
+                               stacks=((16, 2), (32, 2), (32, 2)),
+                               bytes_per_el=2):
+    """Activation bytes per frame that ImpalaDeep's torso forward moves
+    through device memory (``scripts/profile_impala.py``'s model): each
+    conv reads its input and writes its output, the pool reads its input
+    and writes a quarter; the weights are small and stay in cache."""
+    total = 0
+    x_h, x_w, c = h, w, cin
+    for ch, blocks in stacks:
+        total += x_h * x_w * (c + ch) * bytes_per_el  # downscale conv
+        total += x_h * x_w * ch * bytes_per_el  # pool read
+        x_h, x_w = (x_h + 1) // 2, (x_w + 1) // 2
+        total += x_h * x_w * ch * bytes_per_el  # pool write
+        total += blocks * 2 * 2 * x_h * x_w * ch * bytes_per_el
+        c = ch
+    return total
+

@@ -82,6 +82,41 @@ def _scalar_event(wall_time: float, step: int, tag: str,
                                                                 value_proto)))
 
 
+def _read_varint(data: bytes, pos: int):
+    n = shift = 0
+    while True:
+        byte = data[pos]
+        pos += 1
+        n |= (byte & 0x7F) << shift
+        shift += 7
+        if not byte & 0x80:
+            return n, pos
+
+
+def read_scalars(path: str):
+    """The scalars of an event file that ``EventFileWriter`` wrote, in
+    order, as ``(wall_time, step, tag, value)``; the file-version record is
+    skipped. Reads only the layout this module writes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack_from("<Q", data, pos)
+        event = data[pos + 12:pos + 12 + length]
+        pos += 12 + length + 4
+        (wall_time,) = struct.unpack_from("<d", event, 1)
+        step, i = _read_varint(event, 9 + 1)
+        if event[i] != (5 << 3 | 2):  # not a summary
+            continue
+        _, i = _read_varint(event, i + 1)  # the summary's length
+        _, i = _read_varint(event, i + 1)  # its value's length
+        tag_len, i = _read_varint(event, i + 1)
+        tag = event[i:i + tag_len].decode("utf-8")
+        (value,) = struct.unpack_from("<f", event, i + tag_len + 1)
+        out.append((wall_time, step, tag, value))
+    return out
+
+
 class EventFileWriter:
     """Appends TensorBoard scalar events to a new file under ``logdir``."""
 

@@ -87,11 +87,16 @@ def _sac_grid():
 GRIDS["sac_visual_flops_per_env_frame"] = _sac_grid()
 
 
+# The models of scripts/profile_impala.py, which the port's module also
+# holds (held against the script in tests/test_torch_tools.py).
+SCRIPT_MODELS = ["impala_flops_per_frame", "impala_hbm_bytes_per_frame"]
+
+
 def test_the_port_has_every_function_of_the_jax_module():
     port = sorted(
         name for name, fn in inspect.getmembers(flops, inspect.isfunction)
         if fn.__module__ == flops.__name__)
-    assert port == FUNCTIONS
+    assert port == sorted(FUNCTIONS + SCRIPT_MODELS)
     assert set(GRIDS) == set(FUNCTIONS)
     assert flops.BWD_MULT == jax_flops.BWD_MULT
 

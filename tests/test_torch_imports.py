@@ -151,6 +151,25 @@ def test_scan_covers_the_example_module_the_tools_and_the_launchers():
         assert "seed_rl_tpu" not in text and "jax" not in text.lower(), path
 
 
+TOOLS = ("_timing", "bench_r2d2", "bench_football", "sweep_bench",
+         "profile_bench", "profile_torso", "profile_impala", "exp_pool_vjp",
+         "exp_bwd_decomp", "profile_ppo_atari", "profile_sac_visual",
+         "bench_batcher", "bench_fleet", "bench_scaling")
+
+
+def test_scan_covers_the_measurement_tools():
+    """Every measurement tool is held to the rule: no JAX, nothing of
+    seed_rl_tpu, and no TPU's peak rate in its code."""
+    files = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in TOOLS:
+        path = f"seed_rl_torch/tools/{name}.py"
+        assert path in files, path
+        roots = {root for _, root in _imported_roots(ROOT / path)}
+        assert not roots & FORBIDDEN, path
+        text = (ROOT / path).read_text()
+        assert "197e12" not in text and "819e9" not in text, path
+
+
 def test_env_packages_only_inside_the_adapter_functions():
     """gymnasium and the emulators stay off the card's path: never at
     module level, and inside a function only in the adapters that build a

@@ -323,7 +323,7 @@ PORT_MODULES = dict(cca=cca, pd=tpd, norm=tin, rs=rs, c=constraints, gol=gol,
 
 
 def _build(m, net, mode, spec, num_envs=8, unroll_length=4, epochs=2,
-           batches=2, lr=3e-3, clip=0.5):
+           batches=2, lr=3e-3, clip=0.5, repeats=1):
     """tests/test_ppo_learner.py's toy-env PPO learner, from either
     package's modules ``m``, around ``net``."""
     is_jax = m is JAX_MODULES
@@ -349,7 +349,8 @@ def _build(m, net, mode, spec, num_envs=8, unroll_length=4, epochs=2,
         regularizer=m["reg"].KLPolicyRegularizer(entropy=entropy),
         baseline_cost=1.0)
     config = m["learner"].PPOConfig(epochs_per_step=epochs, batch_mode=mode,
-                                    batches_per_step=batches)
+                                    batches_per_step=batches,
+                                    num_action_repeats=repeats)
     if is_jax:
         engine = JaxRolloutEngine(
             JaxBatchedEnv(JaxToyEnv(horizon=3), num_envs), agent,
@@ -451,6 +452,32 @@ def test_ppo_update_matches_jax(mode):
     _close(tl.agent.obs_norm, jnew.obs_norm, TOL, "observation statistics")
     _close(new.stats, jnew.stats, TOL, "episode statistics")
     assert new.step == int(jnew.step) == 1
+
+
+def _jax_loop_steps(frames_per_step, total_environment_frames):
+    """The train steps the JAX CLI's loop runs (one a call): it steps while
+    ``step * frames_per_step < total_environment_frames``."""
+    step = 0
+    while step * frames_per_step < total_environment_frames:
+        step += 1
+    return step
+
+
+@pytest.mark.parametrize("repeats", [1, 2])
+def test_num_action_repeats_counts_frames_as_jax(repeats):
+    """``PPOConfig.num_action_repeats`` multiplies the frame count, as JAX
+    does (``seed_rl_tpu/agents/ppo/learner.py:90-94``), and leaves the
+    minibatches alone: the frames a step, and the steps run for a frame
+    budget, equal JAX's (exact: integers)."""
+    spec = dict(net="cli", loss="ppo", compensate=False)
+    jl, tl, _ = _learners("split", spec, repeats=repeats)
+    assert tl.frames_per_step == jl.frames_per_step == 8 * 4 * repeats
+    total = 6 * 8 * 4
+    state, _ = ppo.learner_loop(tl, total)
+    assert state.step == _jax_loop_steps(jl.frames_per_step, total)
+    assert state.step == 6 // repeats
+    # The split into minibatches is the same: 2 epochs x 2 a step.
+    assert tl.optimizer.count == state.step * 2 * 2
 
 
 def test_unreached_loss_parameter_steps_like_optax():

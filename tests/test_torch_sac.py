@@ -537,6 +537,50 @@ def test_sac_learns_toy_env():
     assert math.isfinite(float(metrics["losses/total"]))
 
 
+@pytest.mark.parametrize("repeats", [1, 2])
+def test_num_action_repeats_counts_frames_as_jax(repeats):
+    """``SACConfig.num_action_repeats`` multiplies the frame count of the
+    device learner and of the host learner, as JAX does
+    (``seed_rl_tpu/agents/sac.py:438-440, 648-650``), and leaves the batch
+    alone: the frames a step or cycle, and the steps run for a frame
+    budget, equal JAX's (exact: integers)."""
+    num_envs, unroll, batch = 8, 1, 16
+    kw = dict(batch_size=batch, replay_buffer_size=256,
+              replay_buffer_min_size=32, num_action_repeats=repeats)
+    jconfig, tconfig = jsac.SACConfig(**kw), sac.SACConfig(**kw)
+    jlearner = jsac.SACLearner(
+        types.SimpleNamespace(unroll_length=unroll,
+                              env=types.SimpleNamespace(num_envs=num_envs)),
+        None, jconfig, optax.adam(1e-3))
+    env = BatchedEnv(ToyEnv(horizon=3), num_envs, device="cpu")
+    dist = tpd.NormalTanhDistribution(3)
+    net = ActorCriticMLP(dist.param_size, env.observation_spec(),
+                         mlp_sizes=(16,), device="cpu")
+    agent = sac.SACAgent(net, dist)
+    learner = sac.SACLearner(
+        RolloutEngine(env, agent, unroll), agent, tconfig,
+        functools.partial(optim.ClippedAdam, learning_rate=1e-3))
+    assert (learner.frames_per_step == jlearner.frames_per_step
+            == num_envs * unroll * repeats)
+    total = 6 * num_envs * unroll
+    state, _ = sac.learner_loop(learner, total)
+    want = 0
+    while want * jlearner.frames_per_step < total:  # the JAX CLI's loop
+        want += 1
+    assert state.step == want == 6 // repeats
+    assert state.batches == state.step  # one batch of 16 a step
+
+    jhost = jsac.SACHostLearner(None, jconfig, optax.adam(1e-3), num_envs,
+                                unroll_length=4)
+    host = sac.SACHostLearner(agent, tconfig,
+                              functools.partial(optim.ClippedAdam,
+                                                learning_rate=1e-3),
+                              num_envs, unroll_length=4)
+    assert (host.frames_per_cycle == jhost.frames_per_cycle
+            == num_envs * 4 * repeats)
+    assert host.batch_size == jhost.batch_size == batch
+
+
 def test_sac_polyak_target_moves_toward_online():
     learner = _toy_learner(num_envs=8, batch_size=16)
     state = learner.init()
