@@ -95,7 +95,10 @@ Phases, in order; any failure exits non-zero:
          agent is exported with export_policy on the card and loaded back
          with load_policy: on the rollout's own env_output, its actions
          must equal policy_step(deterministic=True)'s and its new state be
-         within 1e-5;
+         within 1e-5; then its sampling policy (deterministic=False), whose
+         draws the loaded policy makes from a torch.Generator on the card:
+         its actions must equal policy_step(generator=...)'s on a
+         generator of the same seed and its new state be within 1e-5;
      (b) R2D2 on discrete_match at phase 6's knobs: 2 warm-ups and 2 steps,
          then a resume for 2 more: the replay restored (items, priorities,
          num_inserted, cursors) must equal the saved one bitwise, no
@@ -154,7 +157,9 @@ Phases, in order; any failure exits non-zero:
      (SAC's: remote_sac_actor on HostToyEnv), 32 envs each, at a unix
      socket in the temp directory; the launch counts reset just before
      each path:
-     (a) V-trace with AtariPolicyNet, 4 actors (128 envs), unroll 32, 3
+     (a) V-trace with AtariPolicyNet, the learner named with the device
+         env synthetic_atari (its specs only: it builds no batched env),
+         its 4 actors (128 envs) on synthetic_atari_host, unroll 32, 3
          updates: one B1 launch each, B1 against its plain version on the
          last unroll updated on;
      (b) R2D2 at phase 6's knobs with DuelingLSTMDQNNet, 4 actors,
@@ -251,18 +256,21 @@ Phases, in order; any failure exits non-zero:
      32, 2 calls), sweep_bench (256 x 32 x 1 and 1024 x 32 x 2),
      profile_bench (256 x 32), profile_torso (T 32, B 256),
      profile_impala (64 x 32), exp_pool_vjp (2112 frames, the step at 64
-     x 32) and exp_bwd_decomp (2112 frames), profile_ppo_atari (64 x 4)
-     and profile_sac_visual (torso batches 256 and 8448, sweep 128 x 2
-     and 256 x 4), 1 iteration a row;
-     bench_batcher (64 clients, batch 128, 2 s), bench_fleet (1 and 2
-     actors of 8 synthetic_atari_host envs, 2560 frames each) and
-     bench_scaling (1 and 2 gloo ranks on cuda:0, the mlp model, 2
-     calls). Every rate must be finite and > 0 and each tool's profiled
-     rows must have a device time (one or two short kernels may record
-     none; those rows are named); profile_impala's mfu against the H100's
-     bf16 peak must lie in (0, 1); exp_pool_vjp's two pools must give
-     equal outputs and input gradients within 1e-5; bench_scaling's
-     summary must carry the JAX script's keys and the shared-card note.
+     x 32), exp_bwd_decomp and exp_packed_conv (2112 frames),
+     profile_ppo_atari (64 x 4) and profile_sac_visual (torso batches 256
+     and 8448, sweep 128 x 2 and 256 x 4), 1 iteration a row;
+     bench_batcher (64 clients, batch 128, 2 s), bench_fleet (2 actors
+     of 8 synthetic_atari_host envs, 2560 frames) and bench_scaling (1
+     and 2 gloo ranks on cuda:0, the mlp model, 2 calls). Every rate must
+     be finite and > 0
+     and each tool's profiled rows must have a device time (one or two
+     short kernels may record none; those rows are named; every row of
+     exp_packed_conv must have one); profile_impala's mfu against the
+     H100's bf16 peak must lie in (0, 1); exp_pool_vjp's two pools must
+     give equal outputs and input gradients within 1e-5; exp_packed_conv's
+     packed convs must equal the plain one within two bf16 steps of its
+     largest output (2 x 2^-7 x max |plain|); bench_scaling's summary must
+     carry the JAX script's keys and the shared-card note.
      One V-trace launch per train step, update or loss and one n-step
      launch per insert and per batch in this process (TOOLS_LAUNCHES); B1
      on the first unroll of each V-trace tool and B2 on bench_r2d2's last
@@ -486,6 +494,7 @@ SAC_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 # its continuous actions; discrete ones must be equal).
 CKPT_STEPS, RESUME_STEPS, PROFILE_CALLS = 2, 4, 2
 EXPORT_TOL = 1e-5
+EXPORT_SEED = 1234  # the sampling policy's generators
 CKPT_EVAL_EPISODES = 32  # the CLI's default
 
 # Device time (torch.profiler, 20 launches) of each kernel's first design,
@@ -1442,6 +1451,36 @@ def _check_policy(name, policy, agent, rollout, tol):
     return err
 
 
+def _check_sampling_policy(name, policy, agent, rollout, tol):
+    """The loaded sampling policy, drawing from a generator on the card,
+    against ``agent.policy_step(generator=...)`` on a generator of the
+    same seed, on the rollout's own inputs; returns the max |error| of
+    the state. Both generators must advance alike."""
+    batch = rollout.prev_action.shape[0]
+    core = agent.initial_state(batch)
+    device = rollout.prev_action.device
+    got_rng = torch.Generator(device=device).manual_seed(EXPORT_SEED)
+    want_rng = torch.Generator(device=device).manual_seed(EXPORT_SEED)
+    action, state = policy(rollout.prev_action, rollout.env_output, core,
+                           got_rng)
+    with torch.no_grad():
+        want, want_state = agent.policy_step(
+            rollout.prev_action, rollout.env_output, core,
+            generator=want_rng)
+    if policy.deterministic or not torch.equal(action, want.action):
+        raise RuntimeError(f"{name}: sampled actions differ")
+    if not torch.equal(got_rng.get_state(), want_rng.get_state()):
+        raise RuntimeError(f"{name}: the generators advanced apart")
+    err = 0.0
+    for got, w in zip(pytree.tree_leaves(state),
+                      pytree.tree_leaves(want_state)):
+        err = max(err, float((got.float() - w.float()).abs().max()))
+    if not err <= tol:
+        raise RuntimeError(f"{name}: exported sampling policy off by {err} "
+                           f"(tol {tol})")
+    return err
+
+
 def run_checkpoint_vtrace(smi, logdir):
     """Phase 14 (a); returns its V-trace launches."""
     from seed_rl_torch.utils.export import export_policy, load_policy
@@ -1495,6 +1534,19 @@ def run_checkpoint_vtrace(smi, logdir):
           f"actions equal to policy_step(deterministic=True)'s on the "
           f"rollout's {path.envs} env outputs, state max|err|={err:.3e} "
           f"(tol {EXPORT_TOL}) ({smi})")
+    sampling_dir = os.path.join(logdir, "export_sampling")
+    t0 = time.perf_counter()
+    export_policy(sampling_dir, learner.agent, state.rollout.prev_action,
+                  state.rollout.env_output, deterministic=False)
+    export_s = time.perf_counter() - t0
+    policy = load_policy(sampling_dir)
+    err = _check_sampling_policy(name, policy, learner.agent, state.rollout,
+                                 EXPORT_TOL)
+    print(f"{name}: sampling policy exported in {export_s:.3f} s "
+          f"({len(policy.recipe)} draw(s): "
+          f"{[(d.kind, d.shape) for d in policy.recipe]}): actions equal "
+          f"to policy_step(generator=...)'s on a generator of the same "
+          f"seed, state max|err|={err:.3e} (tol {EXPORT_TOL}) ({smi})")
     _print_path_end(name, start)
     return RESUME_STEPS + 1 + PROFILE_CALLS
 
@@ -2653,8 +2705,9 @@ class RemoteTimer:
               + f" ({smi})")
 
 
-def _remote_flags(agent, fleet, envs, unroll, extra=()):
-    return [f"--agent={agent}", "--env=synthetic_atari_host",
+def _remote_flags(agent, fleet, envs, unroll, extra=(),
+                  env="synthetic_atari_host"):
+    return [f"--agent={agent}", f"--env={env}",
             f"--num_envs={envs}", f"--unroll_length={unroll}",
             f"--server_address={fleet.address}",
             "--log_every_steps=1", *extra]
@@ -2719,11 +2772,16 @@ def run_remote_vtrace(smi, directory):
     """Phase 16 (a); returns (B1 launches, max |kernel - plain|)."""
     from seed_rl_torch import train
 
-    name = "remote vtrace synthetic_atari_host"
+    from seed_rl_torch.remote import SpecHostEnv
+
+    name = "remote vtrace synthetic_atari"
     start = time.perf_counter()
     envs = REMOTE_VTRACE_ACTORS * REMOTE_ACTOR_ENVS
     fleet = RemoteFleet("vtrace", directory)
-    flags = _remote_flags("vtrace", fleet, envs, REMOTE_VTRACE_UNROLL)
+    # The learner named with the device env: its specs serve the actors'
+    # synthetic_atari_host envs.
+    flags = _remote_flags("vtrace", fleet, envs, REMOTE_VTRACE_UNROLL,
+                          env="synthetic_atari")
     for k in range(REMOTE_VTRACE_ACTORS):
         fleet.start_atari(k * REMOTE_ACTOR_ENVS)
     frames = REMOTE_VTRACE_UPDATES * envs * REMOTE_VTRACE_UNROLL
@@ -2735,10 +2793,16 @@ def run_remote_vtrace(smi, directory):
             "vtrace": REMOTE_VTRACE_UPDATES, "nstep": 0}:
         raise RuntimeError(f"{name}: {state.step} updates, launches "
                            f"{launches}; want one B1 per update")
+    if not isinstance(learner.engine.env, SpecHostEnv):
+        raise RuntimeError(f"{name}: the learner's env is "
+                           f"{type(learner.engine.env).__name__}")
     _finite(name, metrics)
     matched, _ = _check_returns(name, t.stats, lives)
-    print(f"{name}: {REMOTE_VTRACE_ACTORS} actor processes x "
-          f"{REMOTE_ACTOR_ENVS} envs, AtariPolicyNet (LSTM 256), unroll "
+    print(f"{name}: the learner on synthetic_atari's specs "
+          f"{learner.engine.env.observation_spec()}, its "
+          f"{REMOTE_VTRACE_ACTORS} actor processes x "
+          f"{REMOTE_ACTOR_ENVS} synthetic_atari_host envs, AtariPolicyNet "
+          f"(LSTM 256), unroll "
           f"{REMOTE_VTRACE_UNROLL}, {state.step} updates; the learner's "
           f"{matched} completed returns equal the actors' own ({smi})")
     t.report(name, envs * REMOTE_VTRACE_UNROLL, launches, finals, smi)
@@ -4134,11 +4198,15 @@ TOOLS_ARGS = (
     ("profile_impala", ["--envs=64", TOOLS_ITERS]),
     ("exp_pool_vjp", ["--n=2112", "--envs=64", TOOLS_ITERS]),
     ("exp_bwd_decomp", ["--n=2112", TOOLS_ITERS]),
+    # Before the tools that start processes on the card: after them, the
+    # profiler in this process recorded no device time on most of its
+    # one-kernel rows.
+    ("exp_packed_conv", ["--n=2112", TOOLS_ITERS]),
     ("profile_ppo_atari", ["--num_envs=64", "--unroll=4", "--iters=1"]),
     ("profile_sac_visual", [TOOLS_ITERS, "--torso_batches=256,8448",
                             "--sweep=128x2,256x4"]),
     ("bench_batcher", ["64", "128", "2"]),
-    ("bench_fleet", ["2560", "1,2", "--env=synthetic_atari_host",
+    ("bench_fleet", ["2560", "2", "--env=synthetic_atari_host",
                      "--warmup_frames=0"]),
     ("bench_scaling", ["--replicas=1,2", "--backend=gloo", "--calls=2"]),
 )
@@ -4177,6 +4245,31 @@ def _rows_measured(name, rows):
         raise RuntimeError(f"tool {name}: no row has a device time")
     if missing:
         print(f"tool {name}: device time not measured on {missing}")
+
+
+def _check_packed_conv(result):
+    """exp_packed_conv: every row timed on the device, within its bound,
+    and both packed convs equal to the plain one within two bf16 steps of
+    its largest output."""
+    eps = torch.finfo(torch.bfloat16).eps
+    for shape, got in result["shapes"].items():
+        rows = got["rows"].values()
+        _positive_rates("exp_packed_conv", *(row.ms for row in rows))
+        missing = [row.name for row in rows if row.busy_ms is None]
+        if missing:
+            raise RuntimeError(f"tool exp_packed_conv: no device time on "
+                               f"{shape}'s rows {missing}")
+        for key, b in got["bounds"].items():
+            if not 0 < b["share"] <= 1:
+                raise RuntimeError(f"tool exp_packed_conv: {shape} {key} at "
+                                   f"{b['share']} of its bound")
+        limit = 2 * eps * got["plain_max_abs"]
+        errs = (got["max_err_1d"], got["max_err_2d"])
+        if not all(e <= limit for e in errs):
+            raise RuntimeError(f"tool exp_packed_conv: {shape}'s packed "
+                               f"convs off by {errs} (limit {limit:.3e})")
+        print(f"tool exp_packed_conv: {shape} max|packed - plain| "
+              f"{errs[0]:.3e} / {errs[1]:.3e} (limit {limit:.3e})")
 
 
 def _check_tool(name, result):
@@ -4221,13 +4314,15 @@ def _check_tool(name, result):
         _positive_rates(name, result["calls_per_sec"],
                         result["batches_per_sec"], result["mean_fill"])
     elif name == "bench_fleet":
-        if [line["actors"] for line in result] != [1, 2]:
+        if [line["actors"] for line in result] != [2]:
             raise RuntimeError(f"tool {name}: {result}")
         for line in result:
             if line["platform"] != "cuda":
                 raise RuntimeError(f"tool {name}: {line}")
             _positive_rates(name, line["value"], line["batcher_mean_fill"],
                             line["window_secs"])
+    elif name == "exp_packed_conv":
+        _check_packed_conv(result)
     elif name == "bench_scaling":
         keys = {"metric", "value", "unit", "platform", "frames_per_sec",
                 "note", "card"}

@@ -57,16 +57,19 @@ class PolicyAgent:
         core_state,
         generator: Optional[torch.Generator] = None,
         deterministic: bool = False,
+        noise=None,
     ) -> Tuple[AgentOutput, Any]:
         """One inference step on [B] inputs; samples an action, or takes
-        the distribution's mode when ``deterministic``."""
+        the distribution's mode when ``deterministic``. ``noise`` (the
+        tree of ``distribution.draws``) replaces the generator's draws."""
         (policy_params, baseline), core_state = self.net(
             prev_action, env_output, core_state
         )
         if deterministic:
             action = self.distribution.mode(policy_params)
         else:
-            action = self.distribution.sample(policy_params, generator)
+            action = self.distribution.sample(policy_params, generator,
+                                              noise)
         return AgentOutput(action, policy_params, baseline), core_state
 
     def unroll(
@@ -106,10 +109,10 @@ class NormalizingObservationsAgent:
 
     def policy_step(self, prev_action, env_output, core_state,
                     generator: Optional[torch.Generator] = None,
-                    deterministic: bool = False):
+                    deterministic: bool = False, noise=None):
         return self.inner.policy_step(
             prev_action, self._normalized(env_output), core_state, generator,
-            deterministic)
+            deterministic, noise)
 
     def unroll(self, prev_actions, env_outputs, core_state):
         return self.inner.unroll(prev_actions, self._normalized(env_outputs),

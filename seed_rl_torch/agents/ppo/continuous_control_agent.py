@@ -229,9 +229,10 @@ class NormalizingPolicyAgent(PolicyAgent):
         return env_output._replace(observation=obs)
 
     def policy_step(self, prev_action, env_output, core_state,
-                    generator=None, deterministic=False):
+                    generator=None, deterministic=False, noise=None):
         return super().policy_step(prev_action, self._transform(env_output),
-                                   core_state, generator, deterministic)
+                                   core_state, generator, deterministic,
+                                   noise)
 
     def unroll(self, prev_actions, env_outputs, core_state):
         return super().unroll(prev_actions, self._transform(env_outputs),

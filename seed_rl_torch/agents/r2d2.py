@@ -43,9 +43,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from seed_rl_torch import distributions as pd
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops.cuda import nstep_kernel
-from seed_rl_torch.parallel import collectives, draws
+from seed_rl_torch.parallel import collectives
 from seed_rl_torch.replay import (
     REPLAY_SHARDS,
     PrioritizedReplay,
@@ -103,14 +104,12 @@ class R2D2Agent:
         output, new_state = self.net(prev_action, env_output, core_state)
         if deterministic:
             return QAgentOutput(output.action, output.q_values), new_state
-        batch = output.action.shape[0]
         device = output.action.device
+        random_draw, uniform_draw = self.draws(output.action.shape[0])
         if random_actions is None:
-            random_actions = draws.randint(
-                0, self.num_actions, (batch,), generator, device=device,
-                dtype=torch.int32)
+            random_actions = pd.draw(random_draw, generator, device)
         if uniform is None:
-            uniform = draws.rand((batch,), generator, device=device)
+            uniform = pd.draw(uniform_draw, generator, device)
         epsilons = (self.epsilons if env_ids is None
                     else self.epsilons[env_ids])
         take_random = uniform < epsilons
@@ -118,6 +117,12 @@ class R2D2Agent:
             take_random, random_actions.to(torch.int32), output.action
         )
         return QAgentOutput(action, output.q_values), new_state
+
+    def draws(self, batch: int):
+        """The draws of an epsilon-greedy step, in its order:
+        ``random_actions``, then ``uniform``."""
+        return (pd.Draw("randint", (batch,), torch.int32, self.num_actions),
+                pd.Draw("uniform", (batch,), torch.float32))
 
     def unroll(self, prev_actions, env_outputs, core_state):
         return self.net.unroll(prev_actions, env_outputs, core_state)

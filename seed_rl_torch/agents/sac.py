@@ -134,10 +134,11 @@ class SACAgent:
 
     def policy_step(self, prev_action, env_output, core_state,
                     generator: Optional[torch.Generator] = None,
-                    deterministic: bool = False):
-        """One step on ``[B]`` inputs: samples from the actor, or with
-        ``deterministic`` takes its distribution's mode; a recurrent net
-        advances every net's carry either way."""
+                    deterministic: bool = False, noise=None):
+        """One step on ``[B]`` inputs: samples from the actor (``noise``,
+        the tree of ``distribution.draws``, in place of the generator's
+        draws), or with ``deterministic`` takes its distribution's mode; a
+        recurrent net advances every net's carry either way."""
         if self.net.stateless:
             action_params = self.action_params(prev_action, env_output,
                                                core_state)
@@ -147,7 +148,8 @@ class SACAgent:
         if deterministic:
             action = self.distribution.mode(action_params)
         else:
-            action = self.distribution.sample(action_params, generator)
+            action = self.distribution.sample(action_params, generator,
+                                              noise)
         # SAC stores no baseline; the slot keeps AgentOutput's layout.
         baseline = torch.zeros(action_params.shape[:-1],
                                device=action_params.device)

@@ -9,6 +9,11 @@ for the normals, Gumbel noise for the categoricals). The tests hand both
 packages the same noise, since ``jax.random`` and ``torch.Generator``
 streams differ.
 
+``draws(parameters)`` names the draws ``sample`` makes from a generator
+(a ``Draw`` each: kind, shape and dtype), and ``draw`` makes one with
+the same calls: an exported sampling policy takes its noise as an input
+and its caller draws it by this recipe (``utils/export.py``).
+
 ``get_parametric_distribution_for_action_space`` dispatches by duck typing
 (``spaces``, ``nvec``, ``n``, ``low``/``high``), so a gymnasium space and
 the port's own ``seed_rl_torch.envs.spaces.Box`` both work, and nothing
@@ -18,7 +23,7 @@ here imports gymnasium.
 import abc
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,21 +68,55 @@ class ParametricDistribution(abc.ABC):
     def mode(self, parameters):
         """Deterministic action (used for deterministic/eval inference)."""
 
+    def draws(self, parameters):
+        """The draws ``sample`` makes from a generator for ``parameters``,
+        in its order: a ``Draw``, a list of them (or of None) for a joint
+        distribution, or None where it draws nothing. Its tree is the
+        ``noise`` that ``sample`` takes."""
+        raise NotImplementedError(
+            f"{type(self).__name__} names no draws: its sampling step "
+            "cannot be exported")
+
+
+class Draw(NamedTuple):
+    """One random draw of a sampling step: its kind ("gumbel", "normal",
+    "uniform" in [0, 1), or "randint" in [0, high)), shape and dtype."""
+
+    kind: str
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    high: int = 0
+
+
+def draw(spec: Draw, generator, device) -> torch.Tensor:
+    """The draw ``spec`` from ``generator`` (a ``torch.Generator``, a
+    ``parallel.draws.ShardedGenerator`` or None) on ``device``."""
+    shape, dtype = tuple(spec.shape), spec.dtype
+    if spec.kind == "gumbel":
+        tiny = torch.finfo(dtype).tiny
+        uniform = draws.rand(shape, generator, device=device, dtype=dtype)
+        return -torch.log(-torch.log(uniform.clamp(min=tiny)))
+    if spec.kind == "normal":
+        return draws.randn(shape, generator, device=device, dtype=dtype)
+    if spec.kind == "uniform":
+        return draws.rand(shape, generator, device=device, dtype=dtype)
+    if spec.kind == "randint":
+        return draws.randint(0, spec.high, shape, generator, device=device,
+                             dtype=dtype)
+    raise ValueError(f"unknown draw kind {spec.kind!r}")
+
 
 def _normal_noise(shape, like, generator, noise):
     if noise is not None:
         return noise.to(like.dtype)
-    return draws.randn(shape, generator, device=like.device,
-                       dtype=like.dtype)
+    return draw(Draw("normal", shape, like.dtype), generator, like.device)
 
 
 def _gumbel_noise(like, generator, noise):
     if noise is not None:
         return noise.to(like.dtype)
-    tiny = torch.finfo(like.dtype).tiny
-    uniform = draws.rand(like.shape, generator, device=like.device,
-                         dtype=like.dtype)
-    return -torch.log(-torch.log(uniform.clamp(min=tiny)))
+    return draw(Draw("gumbel", like.shape, like.dtype), generator,
+                like.device)
 
 
 class CategoricalDistribution(ParametricDistribution):
@@ -106,6 +145,9 @@ class CategoricalDistribution(ParametricDistribution):
 
     def mode(self, parameters):
         return torch.argmax(parameters, dim=-1).to(self._dtype)
+
+    def draws(self, parameters):
+        return Draw("gumbel", tuple(parameters.shape), parameters.dtype)
 
 
 class MultiCategoricalDistribution(ParametricDistribution):
@@ -148,6 +190,10 @@ class MultiCategoricalDistribution(ParametricDistribution):
 
     def mode(self, parameters):
         return torch.argmax(self._logits(parameters), dim=-1).to(self._dtype)
+
+    def draws(self, parameters):
+        return Draw("gumbel", tuple(self._logits(parameters).shape),
+                    parameters.dtype)
 
 
 class _SafeExp(torch.autograd.Function):
@@ -285,6 +331,16 @@ class NormalTanhDistribution(ParametricDistribution):
         loc, _ = self._loc_scale(parameters)
         return torch.tanh(loc)
 
+    def draws(self, parameters):
+        return _normal_draw(parameters)
+
+
+def _normal_draw(parameters):
+    """The standard normal noise of a diagonal normal's [..., 2 * A]
+    parameters (loc and scale)."""
+    shape = tuple(parameters.shape[:-1]) + (parameters.shape[-1] // 2,)
+    return Draw("normal", shape, parameters.dtype)
+
 
 def _normal_kl(loc_a, scale_a, loc_b, scale_b):
     var_ratio = torch.square(scale_a / scale_b)
@@ -333,6 +389,9 @@ class NormalClippedDistribution(ParametricDistribution):
         loc, _ = self._loc_scale(parameters)
         return torch.clamp(loc, -1.0, 1.0)
 
+    def draws(self, parameters):
+        return _normal_draw(parameters)
+
 
 class DeterministicTanhDistribution(ParametricDistribution):
     """tanh(parameters); used for deterministic continuous policies."""
@@ -359,6 +418,9 @@ class DeterministicTanhDistribution(ParametricDistribution):
 
     def mode(self, parameters):
         return torch.tanh(parameters)
+
+    def draws(self, parameters):
+        return None
 
 
 class JointDistribution(ParametricDistribution):
@@ -447,6 +509,10 @@ class JointDistribution(ParametricDistribution):
                 m = m[..., None]
             modes.append(m.to(self._dtype))
         return torch.cat(modes, dim=-1)
+
+    def draws(self, parameters):
+        return [dist.draws(params) for dist, params in
+                zip(self._dists, self._split_params(parameters))]
 
 
 @dataclasses.dataclass

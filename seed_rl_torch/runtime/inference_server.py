@@ -122,7 +122,11 @@ def _build_and_load():
 
 
 class _Codec:
-    """Flat fixed-size byte codec for a tree of ``ArraySpec`` leaves."""
+    """Flat fixed-size byte codec for a tree of ``ArraySpec`` leaves.
+
+    ``encode`` raises on a leaf of another shape than its spec's, or on a
+    numpy leaf of another dtype (an actor's env whose specs are not the
+    learner's); it casts Python scalars."""
 
     def __init__(self, specs):
         self.leaves, self.structure = specs_lib.flatten(specs)
@@ -142,6 +146,10 @@ class _Codec:
     def encode(self, values) -> bytes:
         parts = []
         for leaf, spec in zip(self._leaves(values), self.leaves):
+            if isinstance(leaf, (np.ndarray, np.generic)) and (
+                    leaf.dtype != np.dtype(spec.dtype)):
+                raise ValueError(f"a leaf of dtype {leaf.dtype} for the "
+                                 f"spec {spec}")
             arr = np.asarray(leaf, np.dtype(spec.dtype))
             if arr.shape != tuple(spec.shape):
                 raise ValueError(f"a leaf of shape {arr.shape} for the spec "

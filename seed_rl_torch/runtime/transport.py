@@ -119,6 +119,8 @@ class SocketClient:
                     "the server sent no specs; pass them explicitly")
             request_specs, result_specs, self.server_config = (
                 specs_lib.loads_handshake(blob))
+        # A request of another shape or dtype than the server's specs
+        # raises here, before a byte of it is sent.
         self._req_codec = _Codec(request_specs)
         self._res_codec = _Codec(result_specs)
         sock.sendall(struct.pack("<QQ", self._req_codec.nbytes,

@@ -67,8 +67,11 @@ Every agent checkpoints and logs as the JAX CLI does:
 The remote-actor runtime (``runtime/``, ``remote.py``), on the host envs:
 - ``--run_mode=learner`` serves batched inference at ``--server_address``
   (a unix socket path, or ``host:port`` for fleets across machines) and
-  trains on the unrolls that actors stream to it: V-trace and PPO one
-  unroll per env per update, R2D2 and SAC through the host-RAM replay
+  trains on the unrolls that actors stream to it. Named with a device env,
+  it builds that env for its observation spec and action space only, as
+  the JAX CLI does, and serves actors on a host env of the same specs
+  (``--env=synthetic_atari`` serves ``synthetic_atari_host``). V-trace and
+  PPO one unroll per env per update, R2D2 and SAC through the host-RAM replay
   under ``--replay_ratio`` (insertion batches of ``batch_size /
   replay_ratio`` unrolls; R2D2's eval envs, the last ``--num_eval_envs``
   ids, act with the eval epsilon and stay out of the replay).
@@ -113,11 +116,11 @@ and ``--sac_net=lstm`` on frames under ``--agent=sac``, HER on any env but
 ``--replay_ratio`` and ``--checkpoint_replay`` outside R2D2 and SAC on a
 host env (and ``--checkpoint_replay`` without ``--logdir``),
 ``--pipeline_host_rollouts`` on a device env or in the remote modes,
-``--train_batches_per_step`` under R2D2 on a host env, ``--run_mode=profile``
-on a host env (the JAX CLI asserts), the remote modes' flags outside them,
-and R2D2 on an env without discrete actions. The remote modes on a device env raise
-``NotImplementedError`` (the JAX CLI's actor asserts a host env; its
-learner takes a device env's specs).
+``--train_batches_per_step`` under R2D2 on a host env or in a learner,
+``--run_mode=profile`` on a host env and HER in a learner (the JAX CLI
+asserts), the remote modes' flags outside them, and R2D2 on an env without
+discrete actions. ``--run_mode=actor`` on a device env raises
+``NotImplementedError`` (the JAX CLI's actor asserts a host env).
 
 Examples (the README's quick-start configs):
   python -m seed_rl_torch.train --agent=vtrace --env=toy \
@@ -141,7 +144,7 @@ Examples (the README's quick-start configs):
       --num_envs=64 --unroll_length=80 --burn_in=40 --replay_ratio=0.75 \
       --pipeline_host_rollouts --logdir=/path/to/run --checkpoint_replay
   python -m seed_rl_torch.train --run_mode=learner --agent=vtrace \
-      --env=synthetic_atari_host --num_envs=64 --server_address=/tmp/l.sock
+      --env=synthetic_atari --num_envs=64 --server_address=/tmp/l.sock
   python -m seed_rl_torch.train --run_mode=actor --agent=vtrace \
       --env=synthetic_atari_host --num_envs=32 --env_id_offset=32 \
       --server_address=/tmp/l.sock
@@ -434,8 +437,9 @@ def _refuse_unported(args):
             "not ported: the JAX CLI cannot run it (GFootball bit-unpacks "
             "its packed uint16 frames, which the normalization has turned "
             "into floats)")
-    host = args.env in HOST_ENVS
-    _refuse_remote_flags(args, host)
+    # A learner serves host actors, whichever env names its specs.
+    host = args.env in HOST_ENVS or args.run_mode == "learner"
+    _refuse_remote_flags(args)
     for flag in ("num_checkpoints", "num_saved_models", "num_snapshots"):
         if getattr(args, flag) and (args.agent != "ppo" or host):
             raise ValueError(f"--{flag} is read by --agent=ppo on a device "
@@ -462,14 +466,14 @@ def _refuse_unported(args):
         _refuse_sac_flags(args)
 
 
-def _refuse_remote_flags(args, host):
+def _refuse_remote_flags(args):
     remote = args.run_mode in ("actor", "learner")
-    if remote and not host:
+    if args.run_mode == "actor" and args.env not in HOST_ENVS:
         raise NotImplementedError(
-            f"--run_mode={args.run_mode} on the device env --env={args.env} "
-            "is not ported: the remote runtime serves host envs "
-            f"({', '.join(HOST_ENVS)}); the JAX CLI's actor asserts one, "
-            "its learner takes a device env's specs only")
+            f"--run_mode=actor on the device env --env={args.env} is not "
+            "ported: the remote runtime serves host envs "
+            f"({', '.join(HOST_ENVS)}), and the JAX CLI's actor asserts "
+            "one; a learner takes a device env's specs only")
     if remote and args.pipeline_host_rollouts:
         raise ValueError("--pipeline_host_rollouts is not read in the remote "
                          "modes: the actors step the envs")
@@ -518,6 +522,10 @@ def _refuse_sac_flags(args):
         raise ValueError("--sac_net=lstm selects nothing on frames: they "
                          "take VisualActorCritic")
     if args.her_window_length:
+        if args.run_mode == "learner":
+            raise ValueError("--her_window_length (HER) runs on the device "
+                             "path only: the JAX CLI's learner asserts no "
+                             "HER window")
         if args.env != "bit_flipping":
             raise ValueError("--her_window_length (HER) needs "
                              "--env=bit_flipping, whose reward it recomputes")
@@ -591,7 +599,9 @@ def _host_env(args, i: int):
 def make_env(args, device, mesh=None):
     """The env and whether it steps on the host: a ``BatchedEnv`` on
     ``device`` (this rank's share of it with a ``mesh``), or a
-    ``HostBatchedEnv`` of ``min(num_envs, 16)`` threads."""
+    ``HostBatchedEnv`` of ``min(num_envs, 16)`` threads. A learner's
+    device env gives its specs only: the learner serves host actors from a
+    ``remote.SpecHostEnv`` over them, and nothing of the env is kept."""
     from seed_rl_torch import envs
 
     if args.env in HOST_ENVS:
@@ -607,6 +617,11 @@ def make_env(args, device, mesh=None):
         "catch_continuous": envs.ContinuousCatchEnv,
         "synthetic_atari": envs.SyntheticAtariEnv,
     }[args.env]()
+    if args.run_mode == "learner":
+        from seed_rl_torch.remote import SpecHostEnv
+
+        return SpecHostEnv(env.observation_spec(), env.action_space,
+                           args.num_envs), True
     return envs.BatchedEnv(env, args.num_envs, device=device, seed=0,
                            mesh=mesh), False
 

@@ -648,7 +648,8 @@ def test_train_main_ppo_on_cpu(env, flags, mode, net_type):
     # flag on host envs).
     (["--agent=ppo", "--env=synthetic_atari_host", "--num_replicas=2"],
      ValueError),
-    (["--agent=ppo", "--env=toy", "--run_mode=learner"], NotImplementedError),
+    (["--agent=ppo", "--env=synthetic_atari", "--run_mode=actor"],
+     NotImplementedError),
 ])
 def test_train_main_ppo_refusals(flags, error):
     with pytest.raises(error):

@@ -19,6 +19,13 @@
   the actors' own printed ones; an actor killed mid-run and replaced on
   the same env ids; the refusals; the fleet launcher's command layout and
   (marked slow, as tests/test_fleet.py's is) a tiny fleet end to end.
+- A learner named with a device env (``--env=synthetic_atari``, the
+  vector envs, dict observations) takes the JAX CLI's specs from it, as
+  the JAX CLI's learner branch builds its ``SpecHostEnv``, builds no
+  batched device env, and serves actors on the matching host env
+  (``synthetic_atari_host``) with their returns exact; an actor whose env
+  gives another shape or dtype is refused at the socket, before a request
+  is served.
 
 Socket paths are short and unique; every join, wait and ``communicate``
 has its own timeout.
@@ -626,8 +633,9 @@ def test_cli_r2d2_learner_goes_on_when_an_actor_is_replaced(monkeypatch):
         assert _prefix_per_life(learner_returns[e], [survivor[e]]) is not None
 
 
-@pytest.mark.parametrize("flags", [["--run_mode=learner", "--env=toy"],
-                                   ["--run_mode=actor", "--env=catch"]])
+@pytest.mark.parametrize("flags", [
+    ["--run_mode=actor", "--env=synthetic_atari"],
+    ["--run_mode=actor", "--env=catch"]])
 def test_cli_refuses_the_remote_modes_on_device_envs(flags):
     with pytest.raises(NotImplementedError, match="serves host envs"):
         train.main(["--agent=vtrace", "--device=cpu", *flags])
@@ -645,6 +653,198 @@ def test_cli_refuses_the_remote_modes_on_device_envs(flags):
 def test_cli_refuses_remote_flags_it_would_not_read(flags, match):
     with pytest.raises(ValueError, match=match):
         train.main(["--agent=vtrace", "--device=cpu", *flags])
+
+
+# --- A learner on a device env's specs. --------------------------------
+
+
+class _Served(Exception):
+    """Raised in place of serving: the test has what it reads."""
+
+
+def _capture_learner(monkeypatch):
+    """Runs ``train.main``'s learner up to the serving loop: returns the
+    arguments the loop was called with. No batched device env may be
+    built on the way."""
+    from seed_rl_torch import envs
+
+    def forbid(*args, **kwargs):
+        raise AssertionError("a learner built a batched device env")
+
+    got = {}
+
+    def serve(agent, learner, *args, **kwargs):
+        got.update(agent=agent, learner=learner, args=args, kwargs=kwargs)
+        raise _Served
+
+    monkeypatch.setattr(envs, "BatchedEnv", forbid)
+    monkeypatch.setattr(remote, "run_remote_learner", serve)
+    monkeypatch.setattr(remote, "run_remote_offpolicy_learner", serve)
+    return got
+
+
+def _spec_tree(spec):
+    """{(shape, dtype name)} of a JAX spec tree (ShapeDtypeStructs)."""
+    return jax.tree.map(lambda s: (tuple(s.shape), np.dtype(s.dtype).name),
+                        spec)
+
+
+def _space(space):
+    if hasattr(space, "n"):
+        return ("discrete", int(space.n))
+    return ("box", tuple(space.shape), np.asarray(space.low).tolist(),
+            np.asarray(space.high).tolist())
+
+
+@pytest.mark.parametrize("agent, env", [
+    ("vtrace", "synthetic_atari"), ("ppo", "toy"), ("r2d2", "discrete_match"),
+    ("sac", "bit_flipping"), ("sac", "catch_continuous")])
+def test_learner_on_a_device_env_takes_the_jax_clis_specs(agent, env,
+                                                          monkeypatch):
+    from seed_rl_tpu import train as jax_train
+
+    got = _capture_learner(monkeypatch)
+    with pytest.raises(_Served):
+        train.main(["--run_mode=learner", f"--agent={agent}", f"--env={env}",
+                    "--device=cpu", "--num_envs=4", "--unroll_length=3",
+                    "--batch_size=4", "--replay_buffer_min_size=4",
+                    "--batches_per_step=2", f"--server_address={sock_path()}"])
+    jenv, location = jax_train.make_env(jax_train.parse_args(
+        [f"--env={env}", f"--agent={agent}", "--num_envs=4"]))
+    assert location == "device"
+    observation_spec = got["args"][0] if agent in ("vtrace", "ppo") else (
+        got["args"][1])
+    want = _spec_tree(jenv.observation_spec())
+    port = remote.array_specs(observation_spec)
+    if isinstance(want, dict):  # C1: the keys in sorted order
+        assert list(port) == sorted(want)
+        port = {k: (v.shape, v.dtype) for k, v in port.items()}
+    else:
+        port = (port.shape, port.dtype)
+    assert port == want
+    if agent in ("vtrace", "ppo"):
+        spec_env = got["learner"].engine.env
+        assert isinstance(spec_env, remote.SpecHostEnv)
+        assert spec_env.num_envs == 4
+        space = spec_env.action_space
+        zeros = spec_env.reset()
+        assert remote.array_specs(observation_spec) == jax.tree.map(
+            lambda x: array_spec(x.shape[1:], x.dtype), zeros.observation)
+    else:
+        example = got["kwargs"]["example_action"]
+        space = jenv.action_space  # the port's zero action of its space
+        assert example.shape == (() if hasattr(space, "n")
+                                 else tuple(space.shape))
+        space = train.make_env(train.parse_args(
+            ["--run_mode=learner", f"--agent={agent}", f"--env={env}",
+             "--num_envs=4"]), torch.device("cpu"))[0].action_space
+    assert _space(space) == _space(jax_train._action_space_of(jenv))
+
+
+def test_learner_on_a_device_env_refuses_what_the_jax_learner_asserts():
+    with pytest.raises(ValueError, match="asserts no HER"):
+        train.main(["--run_mode=learner", "--agent=sac",
+                    "--env=bit_flipping", "--her_window_length=4",
+                    "--unroll_length=2", "--device=cpu"])
+    with pytest.raises(ValueError, match="train_batches_per_step"):
+        train.main(["--run_mode=learner", "--agent=r2d2",
+                    "--env=discrete_match", "--train_batches_per_step=2",
+                    "--device=cpu"])
+
+
+def test_cli_learner_on_synthetic_atari_serves_a_host_actor(monkeypatch):
+    """A V-trace learner named with the device env serves one actor
+    process on synthetic_atari_host: it trains, and its returns equal the
+    actor's own."""
+    path = sock_path()
+    stats = _learner_stats(monkeypatch)
+    actor = _start_actor(path, 0, envs=4)
+    flags = [f for f in _common_flags("vtrace", path)
+             if not f.startswith("--env=")]
+    try:
+        _, state, metrics = train.main(
+            ["--run_mode=learner", "--device=cpu", "--env=synthetic_atari",
+             "--num_envs=4", "--total_environment_frames=72", *flags])
+    finally:
+        episodes, final = _actor_output(actor)
+    assert state.step == 3  # 72 frames of 4 envs x 6 steps
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert final["steps"] > 0
+    learner_returns = {e: list(v) for e, v in
+                       stats[0].completed_returns.items()}
+    assert learner_returns and set(learner_returns) <= set(episodes)
+    for e, returns in learner_returns.items():
+        assert _prefix_per_life(returns, [episodes[e]]) is not None, (
+            e, returns, episodes[e])
+
+
+class _OtherFramesEnv:
+    """synthetic_atari_host's API with other frames: RGB (a shape the
+    learner's specs do not hold) or float32 (a dtype they do not)."""
+
+    def __init__(self, shape, dtype):
+        from seed_rl_torch.envs.synthetic import SyntheticAtariGymEnv
+
+        self._env = SyntheticAtariGymEnv()
+        self.action_space = self._env.action_space
+        self._shape, self._dtype = shape, dtype
+
+    def _frames(self, obs):
+        return np.broadcast_to(obs, self._shape).astype(self._dtype)
+
+    def reset(self, **kwargs):
+        obs, info = self._env.reset(**kwargs)
+        return self._frames(obs), info
+
+    def step(self, action):
+        obs, *rest = self._env.step(action)
+        return (self._frames(obs), *rest)
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("shape, dtype, served", [
+    ((84, 84, 1), np.uint8, True),
+    ((84, 84, 3), np.uint8, False),
+    ((84, 84, 1), np.float32, False),
+    ((84, 84, 1), np.uint16, False),
+])
+def test_an_actor_whose_env_is_not_the_learners_is_refused(shape, dtype,
+                                                           served):
+    """The learner's server on synthetic_atari's specs; an actor on frames
+    of those specs is served, one on other frames raises at the socket
+    and no request of it reaches the server's batches."""
+    from seed_rl_torch.envs.host import HostBatchedEnv
+
+    args = train.parse_args(["--run_mode=learner", "--agent=vtrace",
+                             "--env=synthetic_atari", "--num_envs=2",
+                             "--unroll_length=2"])
+    device = torch.device("cpu")
+    env, host = train.make_env(args, device)
+    assert host and isinstance(env, remote.SpecHostEnv)
+    learner, _ = train._vtrace_learner(args, env, host, _adam(), device)
+    path = sock_path()
+    bridge, server = remote._bridge_and_server(
+        learner.agent, env.observation_spec(), np.zeros((), np.int32), 2, 2,
+        0, 2, path, None, device, 1)
+    try:
+        def run():
+            return remote.run_actor(
+                lambda: HostBatchedEnv(
+                    lambda i: _OtherFramesEnv(shape, dtype), 2,
+                    num_threads=2),
+                path, num_steps=1, max_reconnects=0, connect_timeout=10.0)
+
+        if served:
+            assert run() == 1
+            assert server.stats["total_batches"] >= 1
+        else:
+            with pytest.raises(ValueError, match="for the spec"):
+                run()
+            assert server.stats["total_batches"] == 0
+    finally:
+        server.shutdown()
 
 
 def test_actor_mode_needs_no_device(monkeypatch):

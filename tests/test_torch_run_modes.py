@@ -13,7 +13,7 @@ deterministic policy steps that ``--run_mode=eval`` takes.
 - ``--run_mode=profile`` writes a Chrome trace and one JSON line.
 - ``--init_checkpoint`` warm-starts a run with another ``num_envs``; a
   restart on its own logdir then resumes from there.
-- What stays refused: ``--run_mode={actor,learner}``, more than one
+- What stays refused: ``--run_mode=actor`` on a device env, more than one
   replica, PPO's action-point counts elsewhere, and the host-env flags
   where the JAX CLI ignores them (``--checkpoint_replay`` and
   ``--replay_ratio`` outside R2D2 and SAC on host envs,
@@ -235,7 +235,7 @@ def test_init_checkpoint_warm_starts_then_resumes_its_own(tmp_path):
 @pytest.mark.parametrize("flags,error", [
     (["--agent=vtrace", "--env=toy", "--run_mode=actor"],
      NotImplementedError),
-    (["--agent=sac", "--env=toy", "--run_mode=learner"],
+    (["--agent=sac", "--env=catch_continuous", "--run_mode=actor"],
      NotImplementedError),
     # Data parallelism is for training (the JAX CLI ignores the flag in the
     # other run modes).

@@ -118,6 +118,19 @@ def test_codec_roundtrip_and_shape_check():
         codec.encode({"a": np.zeros(4, np.float32), "b": value["b"]})
 
 
+def test_codec_refuses_an_array_of_another_dtype():
+    """An array leaf must have its spec's dtype (uint16 frames are not cast
+    to a uint8 spec); a Python scalar is cast."""
+    codec = _Codec({"frames": array_spec((2,), np.uint8),
+                    "reward": array_spec((), np.float32)})
+    ok = {"frames": np.array([1, 2], np.uint8), "reward": 0.5}
+    assert codec.decode(codec.encode(ok))["reward"] == np.float32(0.5)
+    for frames, reward in ((np.array([1, 2], np.uint16), 0.5),
+                           (ok["frames"], np.float64(0.5))):
+        with pytest.raises(ValueError, match="dtype"):
+            codec.encode({"frames": frames, "reward": reward})
+
+
 def test_tree_helpers_follow_jax_order():
     tree = (EnvOutput(1, 2, {"b": 3, "a": (4, [5, 6])}, None, 7),
             {"y": 8, "x": 9})

@@ -13,7 +13,11 @@ rate finite and > 0. Beside them:
   gradients within 1e-6 (both route a window's gradient to its first
   maximum, so they are equal here);
 - ``bench_scaling`` runs 1 and 2 gloo ranks on the CPU (the 2 ranks in one
-  spawn), and its summary's keys are the JAX script's.
+  spawn), and its summary's keys are the JAX script's;
+- ``exp_packed_conv`` prints the JAX script's rows for its five shapes,
+  each with its bound (the H100's: bytes at 3.35 TB/s against FLOPs at the
+  bf16 peak), the speedups and the max errors; its 1-D unpacking is a view
+  of the conv's output, and packs that do not divide the frame raise.
 
 The builders of ``bench_scaling``, ``profile_sac_visual`` and
 ``profile_ppo_atari`` are held against the JAX scripts' in
@@ -35,6 +39,7 @@ from seed_rl_torch.tools import (
     bench_r2d2,
     bench_scaling,
     exp_bwd_decomp,
+    exp_packed_conv,
     exp_pool_vjp,
     profile_bench,
     profile_impala,
@@ -288,6 +293,86 @@ def test_exp_bwd_decomp_uses_a_random_cotangent(monkeypatch):
     assert not any(bool((ct == 1).all()) for ct in seen)
 
 
+def test_exp_packed_conv_rows(capsys):
+    result = exp_packed_conv.main([CPU, "--n=2", "--iters=1"])
+    out = capsys.readouterr().out
+    script = _script("exp_packed_conv")
+    # The script's rows and summary, by the words it prints.
+    for words in ('"plain"', "packed 1d P=", "packed 2d ", "speedup 1d",
+                  "maxerr"):
+        assert words in script and words.strip('"') in out
+    shapes = result["shapes"]
+    assert list(shapes) == ["16->16 @36x48", "3->16 @72x96", "32->32 @18x24",
+                            "16->32 @36x48", "32->32 @9x12"]
+    for name, shape in shapes.items():
+        assert [r.name for r in shape["rows"].values()][0] == "plain"
+        for key in ("plain", "packed_1d", "packed_2d"):
+            _positive(shape["rows"][key].ms, shape["bounds"][key]["ms"])
+            assert shape["bounds"][key]["by"] == "bytes", name
+            assert shape["bounds"][key]["share"] is None  # not on a card
+        _positive(shape["speedup_1d"], shape["speedup_2d"])
+        # bf16 outputs of O(1): the forms round their sums apart.
+        limit = 2 * torch.finfo(torch.bfloat16).eps * shape["plain_max_abs"]
+        assert shape["max_err_1d"] <= limit and shape["max_err_2d"] <= limit
+    assert out.count("speedup 1d") == 5
+
+
+def test_exp_packed_conv_bounds_at_the_scripts_size():
+    """n = 8448 bf16: the plain convs are bound by their bytes (e.g. the
+    3->16 conv at 72x96 moves 2.22 GB: 0.66 ms at 3.35 TB/s); the packed
+    forms move the same input and output, and their FLOPs are (P + 2) / 3
+    and (ph + 2)(pw + 2) / 9 of the plain conv's."""
+    n = 8448
+    want = {(72, 96, 3, 16): 0.662, (36, 48, 16, 16): 0.279,
+            (18, 24, 32, 32): 0.139, (36, 48, 16, 32): 0.418,
+            (9, 12, 32, 32): 0.035}
+    for s in exp_packed_conv.SHAPES:
+        x_shape = (n, s.cin, s.h, s.w)
+        nbytes, ops = exp_packed_conv.conv_cost(
+            x_shape, (s.cout, s.cin, 3, 3), (n, s.cout, s.h, s.w))
+        ms, by = exp_packed_conv.bound(nbytes, ops)
+        assert by == "bytes" and round(ms, 3) == want[(s.h, s.w, s.cin,
+                                                      s.cout)]
+        assert ops == n * flops.conv2d(s.h, s.w, s.cin, s.cout, 3)
+        ph, pw = s.pack2d
+        w = torch.zeros(s.cout, s.cin, 3, 3)
+        for wp, (sh, sw), ratio in (
+                (exp_packed_conv.make_packed_kernel_1d(w, s.pack),
+                 (1, s.pack), (s.pack + 2) / 3),
+                (exp_packed_conv.make_packed_kernel_2d(w, ph, pw), (ph, pw),
+                 (ph + 2) * (pw + 2) / 9)):
+            packed_bytes, packed_ops = exp_packed_conv.conv_cost(
+                x_shape, wp.shape, (n, wp.shape[0], s.h // sh, s.w // sw))
+            assert packed_ops == pytest.approx(ops * ratio, rel=1e-12)
+            assert packed_bytes - nbytes == 2 * (wp.numel() - w.numel())
+
+
+def test_exp_packed_conv_unpacks_a_view_and_checks_its_packs(monkeypatch):
+    """The 1-D form's result shares the conv's output storage: no copy."""
+    outputs = []
+    conv2d = exp_packed_conv.F.conv2d
+
+    def recording(*args, **kwargs):
+        outputs.append(conv2d(*args, **kwargs))
+        return outputs[-1]
+
+    monkeypatch.setattr(exp_packed_conv.F, "conv2d", recording)
+    x = torch.randn(2, 16, 4, 8).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(8, 16, 3, 3)
+    wp = exp_packed_conv.make_packed_kernel_1d(w, 4)
+    y = exp_packed_conv.packed_conv_1d(x, wp, 4, 8)
+    assert y.shape == (2, 8, 4, 8)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert (y.untyped_storage().data_ptr()
+            == outputs[-1].untyped_storage().data_ptr())
+    with pytest.raises(ValueError, match="multiple of the pack"):
+        exp_packed_conv.packed_conv_1d(x[..., :6], wp, 4, 8)
+    wp2 = exp_packed_conv.make_packed_kernel_2d(w, 2, 4)
+    with pytest.raises(ValueError, match="multiple of the pack"):
+        exp_packed_conv.packed_conv_2d(x[:, :, :3], wp2, 2, 4, 8)
+
+
 def test_profile_ppo_atari_rows(capsys):
     result = profile_ppo_atari.main([CPU, "--num_envs=8", "--unroll=2",
                                      "--iters=1"])
@@ -383,7 +468,7 @@ def test_bench_scaling_puts_ranks_on_cards(monkeypatch):
 def test_tools_default_to_the_card(monkeypatch):
     """Without --device a tool asks for the card and raises without one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for tool in (bench_r2d2, profile_bench, bench_scaling):
+    for tool in (bench_r2d2, profile_bench, bench_scaling, exp_packed_conv):
         with pytest.raises(RuntimeError, match="--device=cpu"):
             tool.main([])
 

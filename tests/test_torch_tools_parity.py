@@ -25,6 +25,10 @@ permutations, sample indices and loss noise, injected into the port's):
   The f32 V-trace, PPO and SAC steps are held at f32 limits in
   ``tests/test_torch_{vtrace_agent,ppo,sac}.py``; the mlp model's
   gradients here are held at rtol 1e-4 / atol 1e-5.
+- ``exp_packed_conv``: at each of the script's five shapes and packs, the
+  packed kernels equal the script's (``make_packed_kernel_1d`` / ``_2d``,
+  HWIO, transposed to OIHW) exactly, and in f32 both packed convs equal
+  the plain conv and the script's packed convs within rtol = atol = 1e-5.
 """
 
 import importlib.util
@@ -42,7 +46,8 @@ from seed_rl_torch.agents import sac
 from seed_rl_torch.models import AgentState, convert
 from seed_rl_torch.replay import ReplayState
 from seed_rl_torch.rollout import Timestep, Unroll
-from seed_rl_torch.tools import bench_scaling, profile_ppo_atari
+from seed_rl_torch.tools import bench_scaling, exp_packed_conv
+from seed_rl_torch.tools import profile_ppo_atari
 from seed_rl_torch.tools import profile_sac_visual
 from seed_rl_torch.types import AgentOutput, EnvOutput
 from seed_rl_torch.utils import episode_stats
@@ -317,3 +322,41 @@ def test_profile_sac_visual_build_matches_the_scripts():
     np.testing.assert_allclose(float(tl.entropy_cost.detach()),
                                float(jparams["entropy_cost"]), rtol=0,
                                atol=2 * lr + 1e-6)
+
+
+@pytest.mark.parametrize("shape", exp_packed_conv.SHAPES,
+                         ids=lambda s: f"{s.cin}to{s.cout}_{s.h}x{s.w}")
+def test_exp_packed_conv_matches_the_script(shape):
+    script = _jax_script("exp_packed_conv")
+    s, n = shape, 2
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(n, s.h, s.w, s.cin)).astype(np.float32)
+    w = (0.05 * rng.normal(size=(3, 3, s.cin, s.cout))).astype(np.float32)
+    ph, pw = s.pack2d
+    # The kernels: the script's HWIO ones, transposed to OIHW, exactly.
+    jw1 = script.make_packed_kernel_1d(jnp.asarray(w), s.pack)
+    jw2 = script.make_packed_kernel_2d(jnp.asarray(w), ph, pw)
+    tw = _t(w.transpose(3, 2, 0, 1))
+    tw1 = exp_packed_conv.make_packed_kernel_1d(tw, s.pack)
+    tw2 = exp_packed_conv.make_packed_kernel_2d(tw, ph, pw)
+    np.testing.assert_array_equal(tw1.numpy(),
+                                  np.asarray(jw1).transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(tw2.numpy(),
+                                  np.asarray(jw2).transpose(3, 2, 0, 1))
+    # The convs, in f32, NHWC out.
+    tx = _t(x.transpose(0, 3, 1, 2)).contiguous(
+        memory_format=torch.channels_last)
+    plain = exp_packed_conv.plain_conv(tx, tw)
+    got1 = exp_packed_conv.packed_conv_1d(tx, tw1, s.pack, s.cout)
+    got2 = exp_packed_conv.packed_conv_2d(tx, tw2, ph, pw, s.cout)
+    want1 = script.packed_conv_1d(jnp.asarray(x), jw1, s.pack, s.cout)
+    want2 = script.packed_conv_2d(jnp.asarray(x), jw2, ph, pw, s.cout)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for got, want in ((got1, want1), (got2, want2)):
+        assert got.shape == plain.shape == (n, s.cout, s.h, s.w)
+        torch.testing.assert_close(got, plain, **tol)
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(want), **tol)
+    np.testing.assert_allclose(
+        plain.permute(0, 2, 3, 1).numpy(),
+        np.asarray(script.plain_conv(jnp.asarray(x), jnp.asarray(w))), **tol)

@@ -303,10 +303,11 @@ def test_train_main_on_cpu(env):
 
 
 @pytest.mark.parametrize("flag", [
-    # SAC on discrete_match and --agent_module are ported (tests/
-    # test_torch_sac.py, tests/test_torch_agent_module.py); V-trace on
-    # discrete_match is not.
-    "--agent=vtrace", "--run_mode=learner", "--run_mode=actor",
+    # SAC on discrete_match, --agent_module and a learner on a device
+    # env's specs are ported (tests/test_torch_sac.py, tests/
+    # test_torch_agent_module.py, tests/test_torch_remote.py); V-trace on
+    # discrete_match and R2D2 on toy are not.
+    "--agent=vtrace", "--env=toy", "--run_mode=actor",
     "--normalize_observations",
 ])
 def test_train_main_refuses_what_is_not_ported(flag):
