@@ -61,6 +61,7 @@ from seed_rl_torch.rollout import (
 from seed_rl_torch.types import QAgentOutput
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
+from seed_rl_torch.utils.profiling import span
 
 
 def training_env_epsilons(num_training_envs: int, device=None) -> torch.Tensor:
@@ -247,7 +248,8 @@ def loss_inputs(
         suffix = pytree.tree_map(
             lambda t: t[burn_in:], (prev_actions, env_outputs))
         agent_outputs = pytree.tree_map(lambda t: t[burn_in:], agent_outputs)
-        with torch.no_grad():  # stop-gradient on the warmed-up states
+        # Stop-gradient on the warmed-up states.
+        with span("update.burn_in"), torch.no_grad():
             _, training_state = net.unroll(*prefix, agent_state)
             _, target_state = target_net.unroll(*prefix, agent_state)
     else:
@@ -371,20 +373,22 @@ class R2D2Update:
         config = self.config
         prev_actions, env_outputs, agent_outputs = _time_major(
             (items.prev_actions, items.env_outputs, items.agent_outputs))
-        loss, priorities = compute_loss_and_priorities(
-            self.net, self.target_net, items.agent_state,
-            prev_actions, env_outputs, agent_outputs,
-            gamma=config.discounting,
-            burn_in=config.burn_in,
-            n_steps=config.n_steps,
-            rescaling_eps=config.value_function_rescaling_epsilon,
-            target=config.target,
-            retrace_lambda=config.retrace_lambda,
-        )
+        with span("update.loss"):
+            loss, priorities = compute_loss_and_priorities(
+                self.net, self.target_net, items.agent_state,
+                prev_actions, env_outputs, agent_outputs,
+                gamma=config.discounting,
+                burn_in=config.burn_in,
+                n_steps=config.n_steps,
+                rescaling_eps=config.value_function_rescaling_epsilon,
+                target=config.target,
+                retrace_lambda=config.retrace_lambda,
+            )
         # Means over the batch: over every rank's share under a mesh.
         loss = collectives.mean(loss * weights)
         self.optimizer.zero_grad()
-        loss.backward()
+        with span("update.backward"):
+            loss.backward()
         grad_norm = self.optimizer.step()
         logs = {
             "losses/td": loss.detach(),
@@ -512,7 +516,8 @@ class R2D2Learner(R2D2Update):
     def _rollout_and_insert(self, state: R2D2TrainState) -> R2D2TrainState:
         rollout, unroll = self.engine.rollout(state.rollout)
         items = unroll_to_items(unroll, self.num_training_envs)
-        priorities = initial_priorities(self.config, items)
+        with span("replay.priorities"):
+            priorities = initial_priorities(self.config, items)
         replay, _ = self.replay.insert(state.replay, items, priorities)
 
         # Only the last T timesteps are new; the first overlap+1 are shared
@@ -541,33 +546,35 @@ class R2D2Learner(R2D2Update):
     ) -> Tuple[R2D2TrainState, Dict[str, torch.Tensor]]:
         """One optimization batch: sample (or take ``indices``), loss,
         clip + Adam on the online net, priority write-back."""
-        config = self.config
-        indices, weights, items = self.replay.sample(
-            state.replay, self.generator, config.batch_size,
-            config.priority_exponent, indices=indices,
-        )
-        # Every rank holds the global batch and trains on its share; the
-        # priorities come back in the global batch order.
-        part = self.mesh.shard(config.batch_size)
-        priorities, logs = self.optimize(
-            pytree.tree_map(lambda t: t[part], items), weights[part])
-        priorities = self.mesh.all_gather(priorities)
-        replay = self.replay.update_priorities(
-            state.replay, indices, priorities)
-        return state._replace(replay=replay), logs
+        with span("update"):
+            config = self.config
+            indices, weights, items = self.replay.sample(
+                state.replay, self.generator, config.batch_size,
+                config.priority_exponent, indices=indices,
+            )
+            # Every rank holds the global batch and trains on its share; the
+            # priorities come back in the global batch order.
+            part = self.mesh.shard(config.batch_size)
+            priorities, logs = self.optimize(
+                pytree.tree_map(lambda t: t[part], items), weights[part])
+            priorities = self.mesh.all_gather(priorities)
+            replay = self.replay.update_priorities(
+                state.replay, indices, priorities)
+            return state._replace(replay=replay), logs
 
     def train_step(
         self, state: R2D2TrainState
     ) -> Tuple[R2D2TrainState, Dict[str, torch.Tensor]]:
-        state = self._rollout_and_insert(state)
-        history = []
-        for _ in range(self.config.train_batches_per_step):
-            state, logs = self.train_on_batch(state)
-            history.append(logs)
-        step = state.step + 1
-        if step % self.config.update_target_every_n_step == 0:
-            self.sync_target()
-        return state._replace(step=step), _mean_metrics(history)
+        with span("train_step", state.step):
+            state = self._rollout_and_insert(state)
+            history = []
+            for _ in range(self.config.train_batches_per_step):
+                state, logs = self.train_on_batch(state)
+                history.append(logs)
+            step = state.step + 1
+            if step % self.config.update_target_every_n_step == 0:
+                self.sync_target()
+            return state._replace(step=step), _mean_metrics(history)
 
     def train_many(
         self, state: R2D2TrainState, num_steps: int

@@ -37,6 +37,7 @@ from seed_rl_torch.rollout import (
 )
 from seed_rl_torch.utils import episode_stats
 from seed_rl_torch.utils.checkpoint import generator_states, load_train_state
+from seed_rl_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,42 +272,47 @@ class VTraceLearner:
     ) -> Tuple[VTraceTrainState, Dict[str, torch.Tensor]]:
         """One optimization step on a collected unroll (``entropy_noise``:
         the global ``[T, B, ...]`` noise in place of the draw)."""
-        self.optimizer.zero_grad()
-        # The entropy noise is this rank's env columns of the global draw
-        # (or of the injected global noise).
-        total = unroll.timesteps.prev_action.shape[1] * self.mesh.size
-        generator = self.mesh.draws(self.generator, total, 1)
-        if entropy_noise is not None:
-            entropy_noise = entropy_noise[:, self.mesh.shard(total)]
-        loss, metrics = compute_loss(
-            self.config, self.agent, self.agent.distribution,
-            self.entropy_cost, unroll, generator, entropy_noise,
-        )
-        loss.backward()
-        self.optimizer.step()
-        # Clip the entropy-cost param to +-20/speed so its gradient can't
-        # underflow (reference learner.py:228-231).
-        mul = self.config.entropy_cost_adjustment_speed
-        with torch.no_grad():
-            self.entropy_cost.clamp_(-20.0 / mul, 20.0 / mul)
-        # Observation-normalization statistics fold, once per training step.
-        if hasattr(self.agent, "update_observation_normalization"):
-            self.agent.update_observation_normalization(
-                unroll.timesteps.env_output.observation)
+        with span("update"):
+            self.optimizer.zero_grad()
+            # The entropy noise is this rank's env columns of the global draw
+            # (or of the injected global noise).
+            total = unroll.timesteps.prev_action.shape[1] * self.mesh.size
+            generator = self.mesh.draws(self.generator, total, 1)
+            if entropy_noise is not None:
+                entropy_noise = entropy_noise[:, self.mesh.shard(total)]
+            with span("update.loss"):
+                loss, metrics = compute_loss(
+                    self.config, self.agent, self.agent.distribution,
+                    self.entropy_cost, unroll, generator, entropy_noise,
+                )
+            with span("update.backward"):
+                loss.backward()
+            self.optimizer.step()
+            # Clip the entropy-cost param to +-20/speed so its gradient can't
+            # underflow (reference learner.py:228-231).
+            mul = self.config.entropy_cost_adjustment_speed
+            with torch.no_grad():
+                self.entropy_cost.clamp_(-20.0 / mul, 20.0 / mul)
+            # Observation-normalization statistics fold, once per training
+            # step.
+            if hasattr(self.agent, "update_observation_normalization"):
+                self.agent.update_observation_normalization(
+                    unroll.timesteps.env_output.observation)
 
-        # Episode accounting on the T new timesteps (skip the shared boundary
-        # step, which the previous unroll already counted).
-        new_env_outputs = pytree.tree_map(
-            lambda x: x[1:], unroll.timesteps.env_output
-        )
-        stats = episode_stats.update(state.stats, new_env_outputs)
-        return state._replace(stats=stats, step=state.step + 1), metrics
+            # Episode accounting on the T new timesteps (skip the shared
+            # boundary step, which the previous unroll already counted).
+            new_env_outputs = pytree.tree_map(
+                lambda x: x[1:], unroll.timesteps.env_output
+            )
+            stats = episode_stats.update(state.stats, new_env_outputs)
+            return state._replace(stats=stats, step=state.step + 1), metrics
 
     def train_step(
         self, state: VTraceTrainState
     ) -> Tuple[VTraceTrainState, Dict[str, torch.Tensor]]:
-        rollout_state, unroll = self.engine.rollout(state.rollout)
-        return self.update(state._replace(rollout=rollout_state), unroll)
+        with span("train_step", state.step):
+            rollout_state, unroll = self.engine.rollout(state.rollout)
+            return self.update(state._replace(rollout=rollout_state), unroll)
 
     def train_many(
         self, state: VTraceTrainState, num_steps: int

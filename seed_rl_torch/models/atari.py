@@ -50,6 +50,7 @@ from seed_rl_torch.models.core import (
 )
 from seed_rl_torch.models.dueling_mlp import DuelingQHeads
 from seed_rl_torch.models.policy import _generator
+from seed_rl_torch.utils.profiling import span
 
 # (features, kernel, stride) of the Nature-DQN conv stack, VALID padding.
 _CONV_STACK = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
@@ -92,11 +93,13 @@ class AtariConvTorso(nn.Module):
         self.dense = dense(in_channels * h * w, 512, generator)
 
     def forward(self, frames):
-        x = nchw_frames(frames, self.dtype)
-        for layer in self.convs:
-            x = torch.relu(conv_apply(layer, x, self.dtype))
-        x = torch.relu(dense_apply(self.dense, flatten_hwc(x), self.dtype))
-        return x.to(torch.float32)
+        with span("torso"):
+            x = nchw_frames(frames, self.dtype)
+            for layer in self.convs:
+                x = torch.relu(conv_apply(layer, x, self.dtype))
+            x = torch.relu(dense_apply(self.dense, flatten_hwc(x),
+                                       self.dtype))
+            return x.to(torch.float32)
 
 
 def initial_frame_stacking_state(

@@ -50,6 +50,7 @@ from seed_rl_torch.models.core import (
 )
 from seed_rl_torch.models.policy import _generator
 from seed_rl_torch.ops.pooling import max_pool_same
+from seed_rl_torch.utils.profiling import span
 
 
 class ResidualStack(nn.Module):
@@ -102,12 +103,13 @@ class ImpalaResNetTorso(nn.Module):
         self.dense = dense(channels * h * w, out_features, generator)
 
     def forward(self, frames):
-        x = nchw_frames(frames, self.dtype)
-        for stack in self.stacks:
-            x = stack(x)
-        x = flatten_hwc(torch.relu(x))
-        return torch.relu(dense_apply(self.dense, x, self.dtype)).to(
-            torch.float32)
+        with span("torso"):
+            x = nchw_frames(frames, self.dtype)
+            for stack in self.stacks:
+                x = stack(x)
+            x = flatten_hwc(torch.relu(x))
+            return torch.relu(dense_apply(self.dense, x, self.dtype)).to(
+                torch.float32)
 
 
 class ImpalaDeep(nn.Module):

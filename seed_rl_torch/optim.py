@@ -30,6 +30,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 
 from seed_rl_torch.parallel import collectives
+from seed_rl_torch.utils.profiling import span
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -110,22 +111,23 @@ class ClippedAdam:
     def step(self) -> torch.Tensor:
         """Clips, applies Adam; returns the global gradient norm before the
         clip (what the JAX learners log as ``grad/norm``)."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        mesh = collectives.active()
-        if mesh is not None:
-            mesh.average_(grads)
-        if self.clip_norm is not None:
-            norm = clip_by_global_norm_(grads, self.clip_norm)
-        else:
-            norm = global_norm(grads)
-        for group in self._adam.param_groups:
-            group["lr"] = self.learning_rate()
-        self._adam.step()
-        self.count += 1
-        return norm
+        with span("update.optimizer"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in self.params]
+            mesh = collectives.active()
+            if mesh is not None:
+                mesh.average_(grads)
+            if self.clip_norm is not None:
+                norm = clip_by_global_norm_(grads, self.clip_norm)
+            else:
+                norm = global_norm(grads)
+            for group in self._adam.param_groups:
+                group["lr"] = self.learning_rate()
+            self._adam.step()
+            self.count += 1
+            return norm
 
     def state_dict(self) -> Dict[str, object]:
         """``count`` and, per parameter in order, Adam's ``step``,

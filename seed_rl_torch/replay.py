@@ -41,6 +41,7 @@ import torch.utils._pytree as pytree
 
 from seed_rl_torch.parallel.mesh import Mesh
 from seed_rl_torch.utils import debug_asserts, tree
+from seed_rl_torch.utils.profiling import span
 
 
 class ReplayState(NamedTuple):
@@ -99,52 +100,55 @@ class PrioritizedReplay:
         ``priorities`` are the rank's own items; the batch is every rank's,
         in rank order.
         """
-        values = pytree.tree_map(self.mesh.all_gather, values)
-        priorities = self.mesh.all_gather(priorities)
-        batch = priorities.shape[0]
-        if batch > self.size:
-            raise ValueError(
-                f"cannot insert {batch} items into a buffer of {self.size}")
-        start = state.insert_index
-        debug_asserts.check(
-            lambda: bool(torch.all(torch.isfinite(priorities)))
-            and bool(torch.all(priorities >= 0.0)),
-            "replay.insert: priorities must be finite and >= 0",
-        )
-        debug_asserts.check(
-            lambda: 0 <= start < self.size,
-            "replay.insert: insert_index out of ring bounds",
-        )
-        first = min(batch, self.size - start)
-        spans = [(start, 0, first)]
-        if first < batch:
-            spans.append((0, first, batch - first))
-        # Sorted dict keys on both sides: a dict built in another key order
-        # still lands leaf by leaf.
-        leaves = tree.sorted_leaves(state.buffer)
-        new = tree.sorted_leaves(values)
-        if len(leaves) != len(new):
-            raise ValueError("inserted items do not match the buffer layout")
-        lo, hi = self.slots.start, self.slots.stop
-        with torch.no_grad():
-            for slot, offset, count in spans:
-                state.priorities[slot:slot + count] = priorities[
-                    offset:offset + count]
-                # The part of the span in this rank's slots.
-                first, last = max(slot, lo), min(slot + count, hi)
-                if first >= last:
-                    continue
-                src = offset + first - slot
-                for leaf, value in zip(leaves, new):
-                    leaf[first - lo:last - lo] = value[src:src + last - first]
-        device = state.priorities.device
-        indices = (start + torch.arange(batch, device=device)) % self.size
-        return ReplayState(
-            buffer=state.buffer,
-            priorities=state.priorities,
-            insert_index=(start + batch) % self.size,
-            num_inserted=min(state.num_inserted + batch, self.size),
-        ), indices
+        with span("replay.insert"):
+            values = pytree.tree_map(self.mesh.all_gather, values)
+            priorities = self.mesh.all_gather(priorities)
+            batch = priorities.shape[0]
+            if batch > self.size:
+                raise ValueError(f"cannot insert {batch} items into a "
+                                 f"buffer of {self.size}")
+            start = state.insert_index
+            debug_asserts.check(
+                lambda: bool(torch.all(torch.isfinite(priorities)))
+                and bool(torch.all(priorities >= 0.0)),
+                "replay.insert: priorities must be finite and >= 0",
+            )
+            debug_asserts.check(
+                lambda: 0 <= start < self.size,
+                "replay.insert: insert_index out of ring bounds",
+            )
+            first = min(batch, self.size - start)
+            spans = [(start, 0, first)]
+            if first < batch:
+                spans.append((0, first, batch - first))
+            # Sorted dict keys on both sides: a dict built in another key order
+            # still lands leaf by leaf.
+            leaves = tree.sorted_leaves(state.buffer)
+            new = tree.sorted_leaves(values)
+            if len(leaves) != len(new):
+                raise ValueError(
+                    "inserted items do not match the buffer layout")
+            lo, hi = self.slots.start, self.slots.stop
+            with torch.no_grad():
+                for slot, offset, count in spans:
+                    state.priorities[slot:slot + count] = priorities[
+                        offset:offset + count]
+                    # The part of the span in this rank's slots.
+                    first, last = max(slot, lo), min(slot + count, hi)
+                    if first >= last:
+                        continue
+                    src = offset + first - slot
+                    for leaf, value in zip(leaves, new):
+                        leaf[first - lo:last - lo] = value[
+                            src:src + last - first]
+            device = state.priorities.device
+            indices = (start + torch.arange(batch, device=device)) % self.size
+            return ReplayState(
+                buffer=state.buffer,
+                priorities=state.priorities,
+                insert_index=(start + batch) % self.size,
+                num_inserted=min(state.num_inserted + batch, self.size),
+            ), indices
 
     def sample(
         self,
@@ -159,54 +163,57 @@ class PrioritizedReplay:
         ``indices`` replaces the draw from ``generator``; the weights are
         computed for them as for a draw.
         """
-        limit = min(state.num_inserted, self.size)
-        debug_asserts.check(lambda: limit > 0, "replay.sample: buffer is empty")
-        device = state.priorities.device
-        if priority_exp == 0:
-            if indices is None:
-                indices = torch.randint(
-                    0, max(limit, 1), (num_samples,), generator=generator,
-                    device=device,
+        with span("replay.sample"):
+            limit = min(state.num_inserted, self.size)
+            debug_asserts.check(lambda: limit > 0,
+                                "replay.sample: buffer is empty")
+            device = state.priorities.device
+            if priority_exp == 0:
+                if indices is None:
+                    indices = torch.randint(
+                        0, max(limit, 1), (num_samples,), generator=generator,
+                        device=device,
+                    )
+                weights = torch.ones((num_samples,), dtype=torch.float32,
+                                     device=device)
+            else:
+                logits = priority_exp * torch.log(
+                    torch.clamp(state.priorities[:max(limit, 1)], min=1e-30)
                 )
-            weights = torch.ones((num_samples,), dtype=torch.float32,
-                                 device=device)
-        else:
-            logits = priority_exp * torch.log(
-                torch.clamp(state.priorities[:max(limit, 1)], min=1e-30)
-            )
-            log_probs = torch.log_softmax(logits, dim=0)
-            if indices is None:
-                indices = torch.multinomial(
-                    torch.exp(log_probs), num_samples, replacement=True,
-                    generator=generator,
-                )
-            probs = torch.exp(log_probs[indices.long()])
-            weights = (
-                (1.0 / max(float(limit), 1.0)) / probs
-            ) ** self.importance_sampling_exponent
-            weights = weights / torch.max(weights)
-        indices = indices.to(device=device, dtype=torch.long)
-        return indices, weights, self.gather(state, indices)
+                log_probs = torch.log_softmax(logits, dim=0)
+                if indices is None:
+                    indices = torch.multinomial(
+                        torch.exp(log_probs), num_samples, replacement=True,
+                        generator=generator,
+                    )
+                probs = torch.exp(log_probs[indices.long()])
+                weights = (
+                    (1.0 / max(float(limit), 1.0)) / probs
+                ) ** self.importance_sampling_exponent
+                weights = weights / torch.max(weights)
+            indices = indices.to(device=device, dtype=torch.long)
+            return indices, weights, self.gather(state, indices)
 
     def gather(self, state: ReplayState, indices: torch.Tensor):
         """The items at global ``indices``: each rank takes those it
         stores, and every rank gets all of them, in ``indices``' order."""
-        if self.mesh.size == 1:
-            # One rank stores every slot: the masked indexing below has a
-            # data-dependent shape, a host sync this path does not pay.
-            return tree.take(state.buffer, indices)
-        lo, hi = self.slots.start, self.slots.stop
-        mine = (indices >= lo) & (indices < hi)
-        local = indices[mine] - lo
-        parts = pytree.tree_map(self.mesh.all_gather,
-                                tree.take(state.buffer, local))
-        # The gathered rows are the owners' in rank order, each in batch
-        # order; the owner of a slot is slot // (S/N).
-        owner = torch.div(indices, hi - lo, rounding_mode="floor")
-        order = torch.argsort(owner, stable=True)
-        position = torch.empty_like(order)
-        position[order] = torch.arange(order.numel(), device=order.device)
-        return tree.take(parts, position)
+        with span("replay.gather"):
+            if self.mesh.size == 1:
+                # One rank stores every slot: the masked indexing below has a
+                # data-dependent shape, a host sync this path does not pay.
+                return tree.take(state.buffer, indices)
+            lo, hi = self.slots.start, self.slots.stop
+            mine = (indices >= lo) & (indices < hi)
+            local = indices[mine] - lo
+            parts = pytree.tree_map(self.mesh.all_gather,
+                                    tree.take(state.buffer, local))
+            # The gathered rows are the owners' in rank order, each in batch
+            # order; the owner of a slot is slot // (S/N).
+            owner = torch.div(indices, hi - lo, rounding_mode="floor")
+            order = torch.argsort(owner, stable=True)
+            position = torch.empty_like(order)
+            position[order] = torch.arange(order.numel(), device=order.device)
+            return tree.take(parts, position)
 
     def update_priorities(
         self, state: ReplayState, indices: torch.Tensor, priorities
@@ -215,15 +222,17 @@ class PrioritizedReplay:
         repeats, its last value wins, on every device: a scatter on the card
         picks among duplicates in no fixed order, and replicated priorities
         must be written alike on every rank."""
-        idx = indices.long()
-        order = torch.argsort(idx, stable=True)
-        ordered = idx[order]
-        last = torch.ones_like(ordered, dtype=torch.bool)
-        last[:-1] = ordered[1:] != ordered[:-1]
-        keep = order[last]
-        with torch.no_grad():
-            state.priorities[idx[keep]] = priorities.to(torch.float32)[keep]
-        return state
+        with span("replay.update_priorities"):
+            idx = indices.long()
+            order = torch.argsort(idx, stable=True)
+            ordered = idx[order]
+            last = torch.ones_like(ordered, dtype=torch.bool)
+            last[:-1] = ordered[1:] != ordered[:-1]
+            keep = order[last]
+            with torch.no_grad():
+                state.priorities[idx[keep]] = priorities.to(
+                    torch.float32)[keep]
+            return state
 
 
 class HERDraws(NamedTuple):

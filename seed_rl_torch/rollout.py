@@ -18,6 +18,7 @@ import torch.utils._pytree as pytree
 
 from seed_rl_torch.envs.core import BatchedEnv, BatchedEnvState
 from seed_rl_torch.types import EnvOutput
+from seed_rl_torch.utils.profiling import span
 
 
 class Timestep(NamedTuple):
@@ -118,16 +119,19 @@ class RolloutEngine:
         return zero.expand((batch,) + tuple(zero.shape)).contiguous()
 
     def _step(self, env_state, env_output, agent_state, prev_action):
-        agent_output, agent_state = self.agent.policy_step(
-            prev_action, env_output, agent_state, self.draws,
-            deterministic=self.deterministic,
-        )
+        with span("rollout.policy_step"):
+            agent_output, agent_state = self.agent.policy_step(
+                prev_action, env_output, agent_state, self.draws,
+                deterministic=self.deterministic,
+            )
         timestep = Timestep(
             prev_action=prev_action,
             env_output=env_output,
             agent_output=agent_output,
         )
-        env_state, env_output = self.env.step(env_state, agent_output.action)
+        with span("rollout.env_step"):
+            env_state, env_output = self.env.step(env_state,
+                                                  agent_output.action)
         return env_state, env_output, agent_state, agent_output.action, timestep
 
     @torch.no_grad()
@@ -164,18 +168,19 @@ class RolloutEngine:
         next_unroll_state = state.next_unroll_state
         # The core state at the timestep that starts the *next* unroll.
         capture_step = self.unroll_length - self.overlap - 1
-        new_timesteps = []
-        for step in range(self.unroll_length):
-            if step == capture_step:
-                next_unroll_state = agent_state
-            env_state, env_output, agent_state, prev_action, timestep = (
-                self._step(env_state, env_output, agent_state, prev_action)
-            )
-            new_timesteps.append(timestep)
+        with span("rollout"):
+            new_timesteps = []
+            for step in range(self.unroll_length):
+                if step == capture_step:
+                    next_unroll_state = agent_state
+                env_state, env_output, agent_state, prev_action, timestep = (
+                    self._step(env_state, env_output, agent_state, prev_action)
+                )
+                new_timesteps.append(timestep)
 
-        unroll_timesteps = _concat_time(
-            state.carry_timesteps, _stack_time(new_timesteps)
-        )
+            unroll_timesteps = _concat_time(
+                state.carry_timesteps, _stack_time(new_timesteps)
+            )
         unroll = Unroll(
             agent_state=state.next_unroll_state, timesteps=unroll_timesteps
         )

@@ -59,7 +59,8 @@ Every agent checkpoints and logs as the JAX CLI does:
 - ``--run_mode=profile``: warm the replay up (R2D2, SAC), make one warm
   call, then trace ``--profile_calls`` calls of ``--steps_per_call`` steps
   with ``torch.profiler`` into ``<logdir or $TMPDIR/seed_rl_torch>/profile
-  /trace.json`` (Chrome format) and print one JSON line;
+  /trace.json`` (Chrome format; each kernel under the port's spans,
+  ``seed_rl_torch.train_step`` and its layers) and print one JSON line;
 - ``--agent=ppo`` only: ``--num_checkpoints``, ``--num_saved_models``
   (exports to ``<logdir>/saved_models/<frames>``) and ``--num_snapshots``
   (in-memory, on ``learner.snapshots``) at linspace frame marks.
@@ -847,9 +848,12 @@ def _synchronize(device):
 def _profile(args, learner):
     """``--run_mode=profile``: after the replay's warm-up (R2D2, SAC) and
     one warm call, trace ``--profile_calls`` calls with ``torch.profiler``
-    (the CPU and, on the card, CUDA) into a Chrome trace; prints one JSON
-    line with the traced calls' env frames/s."""
+    (the CPU and, on the card, CUDA) into a Chrome trace, the port's spans
+    recorded (``utils/profiling.py``); prints one JSON line with the traced
+    calls' env frames/s."""
     from torch.profiler import ProfilerActivity, profile
+
+    from seed_rl_torch.utils import profiling
 
     state = learner.init()
     if hasattr(learner, "warmup_step"):  # replay learners
@@ -862,7 +866,7 @@ def _profile(args, learner):
     if learner.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     start = time.perf_counter()
-    with profile(activities=activities) as prof:
+    with profiling.recording(), profile(activities=activities) as prof:
         for _ in range(args.profile_calls):
             state, _ = learner.train_many(state, args.steps_per_call)
         _synchronize(learner.device)

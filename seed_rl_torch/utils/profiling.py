@@ -1,6 +1,32 @@
-"""Wall-clock profiling helpers of the remote-actor runtime.
+"""The port's profiling: spans on the profiler's timeline, and the
+wall-clock helpers of the remote-actor runtime.
 
-Port of ``seed_rl_tpu/utils/profiling.py`` (the reference's
+Spans name the layers of a train step on ``torch.profiler``'s timeline,
+the clock that also stamps the device's kernels:
+
+- ``span(name, args=None)``: a context manager. Off (the default), it is
+  one shared no-op context returned after a single check of a module
+  flag: no ``record_function``, no string built, nothing allocated. On,
+  it enters ``torch.profiler.record_function("seed_rl_torch." + name)``,
+  so a trace holds the span with its start, end and parent (the span it
+  nests in); ``args`` goes to the range as a string. The root span
+  ``train_step`` carries the learner's step number.
+- ``recording()``: turns the spans on while the ``with`` block runs, in
+  every thread (autograd's backward thread too). Recording is explicit:
+  a profiler that runs outside ``recording()`` sees none of the spans.
+  ``train.py --run_mode=profile`` records them into its Chrome trace.
+
+The spans (the learners, ``rollout.py``, ``replay.py``, ``optim.py`` and
+the torsos in ``models/``): ``train_step``; ``rollout`` with
+``rollout.policy_step`` and ``rollout.env_step`` for each env step;
+``torso`` (every forward, a checkpointed torso's recompute too);
+``update`` with ``update.loss`` (R2D2: ``update.burn_in`` first),
+``update.backward`` and ``update.optimizer``; ``replay.insert``,
+``replay.priorities``, ``replay.sample``, ``replay.gather`` and
+``replay.update_priorities``.
+
+The remote-actor runtime's wall-clock helpers port
+``seed_rl_tpu/utils/profiling.py`` (the reference's
 common/profiling.py and the PPO ``--profile_inference_return`` switch,
 agents/policy_gradient/learner_config.py:24-29):
 
@@ -15,12 +41,39 @@ agents/policy_gradient/learner_config.py:24-29):
   the reference's method.
 
 Device time inside the policy step is the profiler's to show
-(``torch.profiler``), not these host clocks'.
+(``torch.profiler``, under the spans), not these host clocks'.
 """
 
+import contextlib
 import enum
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
+
+from torch.profiler import record_function
+
+PREFIX = "seed_rl_torch."
+_OFF = contextlib.nullcontext()
+_recording = False
+
+
+def span(name: str, args=None):
+    """A span named ``name`` while ``recording()`` is on; else the shared
+    no-op context."""
+    if not _recording:
+        return _OFF
+    return record_function(PREFIX + name,
+                           None if args is None else str(args))
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Turns the spans on for the ``with`` block."""
+    global _recording
+    previous, _recording = _recording, True
+    try:
+        yield
+    finally:
+        _recording = previous
 
 
 class InferenceReturn(enum.Enum):
