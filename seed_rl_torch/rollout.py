@@ -9,9 +9,24 @@ boundary timesteps, unroll k covers global env steps
 its first timestep.
 
 The engine owns the generator that action sampling draws from.
+
+On a CUDA device the T steps and the unroll's assembly are one CUDA graph
+(``CudaGraph``): the first ``rollout`` runs them eagerly (which warms
+cuDNN, lazy inits and the allocator), the second captures them and every
+call replays them, so the host launches one graph where the loop launched
+thousands of kernels. The engine's and the env's generators are registered
+with the graph, so a replay draws what the eager loop would. A capture that
+CUDA refuses (a body that waits for the host) leaves the engine eager for
+good, with a warning; running out of memory in a capture raises. Elsewhere
+the loop runs eagerly. ``captures``,
+``graph_replays`` and ``capture_failures`` count the graph path's events.
+The graph holds its memory pool, about the rollout's working set, for as
+long as the engine lives.
 """
 
-from typing import Any, List, NamedTuple, Tuple
+import gc
+import warnings
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -113,6 +128,14 @@ class RolloutEngine:
         self._zero_action = zero_action_for_space(
             batched_env.action_space, batched_env.device
         )
+        # The rollout as one CUDA graph on a CUDA device (``rollout``); the
+        # eager loop elsewhere.
+        self._graph_class = CudaGraph if self.device.type == "cuda" else None
+        self._graph: Optional[_GraphedRollout] = None
+        self._warm = False  # an eager call has run with no graph held
+        self.captures = 0
+        self.graph_replays = 0
+        self.capture_failures = 0
 
     def _batch_zero_action(self, batch):
         zero = self._zero_action
@@ -160,29 +183,26 @@ class RolloutEngine:
             next_unroll_state=self.agent.initial_state(batch),
         )
 
-    @torch.no_grad()
-    def rollout(self, state: RolloutState) -> Tuple[RolloutState, Unroll]:
-        """Advance T env steps; emit one [o+T+1, B] unroll."""
+    def _body(self, state: RolloutState) -> Tuple[RolloutState, Timestep]:
+        """The rollout's device work: T env steps from ``state`` and the
+        unroll's assembly. Returns the new state and the unroll's
+        ``[o+T+1, B]`` timesteps."""
         env_state, env_output = state.env_state, state.env_output
         agent_state, prev_action = state.agent_state, state.prev_action
         next_unroll_state = state.next_unroll_state
         # The core state at the timestep that starts the *next* unroll.
         capture_step = self.unroll_length - self.overlap - 1
-        with span("rollout"):
-            new_timesteps = []
-            for step in range(self.unroll_length):
-                if step == capture_step:
-                    next_unroll_state = agent_state
-                env_state, env_output, agent_state, prev_action, timestep = (
-                    self._step(env_state, env_output, agent_state, prev_action)
-                )
-                new_timesteps.append(timestep)
-
-            unroll_timesteps = _concat_time(
-                state.carry_timesteps, _stack_time(new_timesteps)
+        new_timesteps = []
+        for step in range(self.unroll_length):
+            if step == capture_step:
+                next_unroll_state = agent_state
+            env_state, env_output, agent_state, prev_action, timestep = (
+                self._step(env_state, env_output, agent_state, prev_action)
             )
-        unroll = Unroll(
-            agent_state=state.next_unroll_state, timesteps=unroll_timesteps
+            new_timesteps.append(timestep)
+
+        unroll_timesteps = _concat_time(
+            state.carry_timesteps, _stack_time(new_timesteps)
         )
         new_state = RolloutState(
             env_state=env_state,
@@ -192,7 +212,216 @@ class RolloutEngine:
             carry_timesteps=_tail_time(unroll_timesteps, self.overlap + 1),
             next_unroll_state=next_unroll_state,
         )
-        return new_state, unroll
+        return new_state, unroll_timesteps
+
+    @torch.no_grad()
+    def rollout(self, state: RolloutState) -> Tuple[RolloutState, Unroll]:
+        """Advance T env steps; emit one [o+T+1, B] unroll."""
+        with span("rollout"):
+            if self._graph_class is None:
+                new_state, timesteps = self._body(state)
+            else:
+                new_state, timesteps = self._graphed(state)
+        return new_state, Unroll(agent_state=state.next_unroll_state,
+                                 timesteps=timesteps)
+
+    def _graphed(self, state: RolloutState) -> Tuple[RolloutState, Timestep]:
+        """``_body`` by the graph: eager on the first call at the engine's
+        shapes, captured on the second, replayed from then on."""
+        watched = _tensors_of((self.agent, self.env))
+        graph = self._graph
+        if graph is not None and not graph.fits(state, watched):
+            graph = self._graph = None
+            self._warm = False
+        if graph is None:
+            if not self._warm:
+                self._warm = True
+                return self._body(state)
+            graph = self._capture(state, watched)
+            if graph is None:
+                return self._body(state)
+        self.graph_replays += 1
+        return graph(state, watched)
+
+    def _capture(self, state, watched) -> Optional["_GraphedRollout"]:
+        """The body captured with ``state``'s shapes, or None (and the
+        eager loop for good) where the capture refuses it: a body that
+        waits for the host, for one, cannot be captured. Running out of
+        memory is no refusal and raises."""
+        generators = [self.generator, self.env.generator]
+        with span("rollout.capture"):
+            try:
+                graph = _GraphedRollout(
+                    self._graph_class(generators), self._body, state,
+                    watched, self.overlap + 1, self.device)
+            except RuntimeError as e:
+                if _out_of_memory(e):
+                    raise
+                self._graph_class = None
+                self.capture_failures += 1
+                warnings.warn(
+                    f"the rollout could not be captured as a CUDA graph "
+                    f"and runs eagerly from now on: {e}", RuntimeWarning)
+                return None
+        self.captures += 1
+        self._graph = graph
+        return graph
+
+
+class CudaGraph:
+    """``torch.cuda.CUDAGraph`` as ``RolloutEngine`` drives it.
+
+    ``capture(fn)`` records ``fn``'s work on a side stream of the
+    generators' device with ``generators`` registered, and returns its
+    outputs, which the graph's memory pool holds; a capture draws nothing.
+    Each ``replay()`` reruns the work on that device's current stream,
+    drawing from each generator what the eager calls would draw next and
+    advancing it as far.
+    """
+
+    def __init__(self, generators: Sequence[torch.Generator]):
+        self._device = generators[0].device
+        self._graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            self._graph.register_generator_state(generator)
+
+    def capture(self, fn):
+        # ``torch.cuda.graph`` empties the cache for the graph's pool; the
+        # memory of dead objects in reference cycles (a learner
+        # ``train.main`` built is one) only a collection frees.
+        gc.collect()
+        # A stream of this device's own, and "thread_local": another
+        # thread's CUDA calls (a logger's copies) do not end the capture.
+        with torch.cuda.device(self._device), torch.cuda.graph(
+                self._graph, stream=torch.cuda.Stream(),
+                capture_error_mode="thread_local"):
+            return fn()
+
+    def replay(self):
+        with torch.cuda.device(self._device):
+            self._graph.replay()
+
+
+class _GraphedRollout:
+    """The rollout's body captured once, over static inputs.
+
+    A call copies the caller's state into the static inputs, replays and
+    returns the outputs cloned, so every unroll and state it hands out is
+    the caller's own, as the eager loop's are. The agent's and env's
+    tensors are read in place (parameters stepped in place are seen); one
+    rebound to another tensor since the capture (``obs_norm``) has its
+    values copied into the captured tensor before each replay.
+    """
+
+    def __init__(self, graph, body, state, watched, carried: int, device):
+        self._graph = graph
+        self._carried = carried
+        self._device = device
+        self._inputs = pytree.tree_map(torch.clone, state)
+        self._input_leaves = pytree.tree_leaves(self._inputs)
+        self._signature = _signature(state)
+        # The captured tensors: the graph reads their memory, which these
+        # references keep.
+        self._watched = dict(watched)
+        self._watched_signature = _signature(watched)
+        self._outputs = graph.capture(lambda: body(self._inputs))
+
+    def fits(self, state, watched) -> bool:
+        """Whether a replay computes ``_body(state)`` with the agent and
+        env as they are now; else a capture has to."""
+        if (_signature(state) != self._signature
+                or _signature(watched) != self._watched_signature):
+            return False
+        live = {t.data_ptr() for t in watched.values()}
+        writes = {}
+        for path, tensor in watched.items():
+            captured = self._watched[path]
+            if tensor.data_ptr() == captured.data_ptr():
+                continue
+            # A value read on the host is part of the graph; a captured
+            # tensor still in use, or captured at two paths that now hold
+            # two tensors, cannot take the new values.
+            if (captured.device != self._device
+                    or captured.data_ptr() in live
+                    or writes.setdefault(captured.data_ptr(),
+                                         tensor.data_ptr())
+                    != tensor.data_ptr()):
+                return False
+        return True
+
+    def __call__(self, state, watched) -> Tuple[RolloutState, Timestep]:
+        for path, tensor in watched.items():
+            captured = self._watched[path]
+            if tensor.data_ptr() != captured.data_ptr():
+                captured.copy_(tensor)
+        for static, given in zip(self._input_leaves,
+                                 pytree.tree_leaves(state)):
+            static.copy_(given)
+        with span("rollout.graph_replay"):
+            self._graph.replay()
+        new_state, timesteps = self._outputs
+        timesteps = pytree.tree_map(torch.clone, timesteps)
+        new_state = pytree.tree_map(
+            torch.clone, new_state._replace(carry_timesteps=()))
+        return new_state._replace(
+            carry_timesteps=_tail_time(timesteps, self._carried)), timesteps
+
+
+def _out_of_memory(error: BaseException) -> bool:
+    """Whether ``error``, or an error it was raised in handling, is the
+    card running out of memory (the allocator's ``OutOfMemoryError``, or
+    CUDA's own "out of memory" error)."""
+    while error is not None:
+        if (isinstance(error, torch.OutOfMemoryError)
+                or "out of memory" in str(error)):
+            return True
+        error = error.__cause__ or error.__context__
+    return False
+
+
+def _signature(tree):
+    """The tree's structure and each leaf's shape, dtype and device."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return spec, [(t.shape, t.dtype, t.device) for t in leaves]
+
+
+def _tensors_of(root) -> Dict[tuple, torch.Tensor]:
+    """The non-empty tensors reachable from ``root``, by path: through
+    lists, tuples and dicts, a module's parameters, buffers and submodules
+    (and a port module's public attributes), and the attributes of the
+    port's other objects."""
+    found: Dict[tuple, torch.Tensor] = {}
+    seen = set()
+
+    def walk(obj, path):
+        if isinstance(obj, torch.nn.Module):
+            items = [*obj._parameters.items(), *obj._buffers.items(),
+                     *obj._modules.items()]
+            if _ours(obj):
+                items += [(k, v) for k, v in vars(obj).items()
+                          if not k.startswith("_")]
+        elif isinstance(obj, (list, tuple)):
+            items = enumerate(obj)
+        elif isinstance(obj, dict):
+            items = obj.items()
+        else:
+            items = getattr(obj, "__dict__", {}).items()
+        for key, value in items:
+            if isinstance(value, torch.Tensor):
+                if value.numel():
+                    found[path + (key,)] = value
+            elif id(value) not in seen and (
+                    isinstance(value, (list, tuple, dict, torch.nn.Module))
+                    or _ours(value)):
+                seen.add(id(value))
+                walk(value, path + (key,))
+
+    walk(root, ())
+    return found
+
+
+def _ours(obj) -> bool:
+    return type(obj).__module__.startswith("seed_rl_torch.")
 
 
 def zero_action_for_space(space, device=None):

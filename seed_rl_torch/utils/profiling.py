@@ -18,7 +18,9 @@ the clock that also stamps the device's kernels:
 
 The spans (the learners, ``rollout.py``, ``replay.py``, ``optim.py`` and
 the torsos in ``models/``): ``train_step``; ``rollout`` with
-``rollout.policy_step`` and ``rollout.env_step`` for each env step;
+``rollout.policy_step`` and ``rollout.env_step`` for each env step (the
+eager loop's, and a capture's once, under ``rollout.capture``), or with
+``rollout.graph_replay`` where a CUDA graph replays the steps;
 ``torso`` (every forward, a checkpointed torso's recompute too);
 ``update`` with ``update.loss`` (R2D2: ``update.burn_in`` first),
 ``update.backward`` and ``update.optimizer``; ``replay.insert``,
