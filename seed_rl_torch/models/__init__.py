@@ -9,6 +9,7 @@ from seed_rl_torch.models.atari import (  # noqa: F401
     DuelingLSTMDQNNet,
 )
 from seed_rl_torch.models.resnets import GFootball, ImpalaDeep  # noqa: F401
+from seed_rl_torch.models.gtrxl import ImpalaGTrXL  # noqa: F401
 from seed_rl_torch.models.sac_nets import (  # noqa: F401
     ActorCriticLSTM,
     ActorCriticMLP,

@@ -112,6 +112,26 @@ class ImpalaResNetTorso(nn.Module):
                 torch.float32)
 
 
+def core_inputs(torso: ImpalaResNetTorso, num_actions: int, prev_action,
+                env_output, batch_dims: int, remat: bool = False):
+    """The core's input over ``batch_dims`` leading dims: the torso's
+    features, the reward clipped to +-1 and the one-hot previous action,
+    f32. ``remat`` recomputes the torso in the backward pass."""
+    frames = env_output.observation
+    lead = frames.shape[:batch_dims]
+    frames = frames.reshape((-1,) + frames.shape[batch_dims:])
+    if remat and torch.is_grad_enabled():
+        x = torch.utils.checkpoint.checkpoint(torso, frames,
+                                              use_reentrant=False)
+    else:
+        x = torso(frames)
+    x = x.reshape(lead + x.shape[-1:])
+    reward = torch.clamp(env_output.reward.to(x.dtype), -1.0, 1.0)
+    one_hot = nn.functional.one_hot(prev_action.long(), num_actions).to(
+        x.dtype)
+    return torch.cat([x, reward.unsqueeze(-1), one_hot], dim=-1)
+
+
 class ImpalaDeep(nn.Module):
     """Deep IMPALA agent: resnet torso + LSTM(256) + policy/value heads.
 
@@ -152,19 +172,8 @@ class ImpalaDeep(nn.Module):
             (self.lstm_size,), batch_size, self.baseline.weight.device)
 
     def _core_inputs(self, prev_action, env_output, batch_dims: int):
-        frames = env_output.observation
-        lead = frames.shape[:batch_dims]
-        frames = frames.reshape((-1,) + frames.shape[batch_dims:])
-        if self.remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                self.torso, frames, use_reentrant=False)
-        else:
-            x = self.torso(frames)
-        x = x.reshape(lead + x.shape[-1:])
-        reward = torch.clamp(env_output.reward.to(x.dtype), -1.0, 1.0)
-        one_hot = nn.functional.one_hot(
-            prev_action.long(), self.num_actions).to(x.dtype)
-        return torch.cat([x, reward.unsqueeze(-1), one_hot], dim=-1)
+        return core_inputs(self.torso, self.num_actions, prev_action,
+                           env_output, batch_dims, self.remat)
 
     def _heads(self, x):
         return self.policy_logits(x), self.baseline(x).squeeze(-1)

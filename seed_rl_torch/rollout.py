@@ -15,10 +15,13 @@ On a CUDA device the T steps and the unroll's assembly are one CUDA graph
 cuDNN, lazy inits and the allocator), the second captures them and every
 call replays them, so the host launches one graph where the loop launched
 thousands of kernels. The engine's and the env's generators are registered
-with the graph, so a replay draws what the eager loop would. A capture that
-CUDA refuses (a body that waits for the host) leaves the engine eager for
-good, with a warning; running out of memory in a capture raises. Elsewhere
-the loop runs eagerly. ``captures``,
+with the graph, so a replay draws what the eager loop would. An agent whose
+net writes its core state in place (GTrXL's memory) keeps that state in the
+graph's own inputs from call to call: a replay updates it where it lies.
+The core state an unroll stores is always a copy (``unroll_state``). A
+capture that CUDA refuses (a body that waits for the host) leaves the
+engine eager for good, with a warning; running out of memory in a capture
+raises. Elsewhere the loop runs eagerly. ``captures``,
 ``graph_replays`` and ``capture_failures`` count the graph path's events.
 The graph holds its memory pool, about the rollout's working set, for as
 long as the engine lives.
@@ -67,6 +70,12 @@ ROLLOUT_SHARDS = RolloutState(
     carry_timesteps=1,  # time-major [overlap + 1, B, ...]
     next_unroll_state=0,
 )
+
+
+def unroll_state(agent_state):
+    """The core state an unroll stores: a copy of ``agent_state``, which a
+    net that writes its state in place (GTrXL's memory) changes later."""
+    return pytree.tree_map(torch.clone, agent_state)
 
 
 def _stack_time(timesteps: List[Timestep]) -> Timestep:
@@ -189,13 +198,13 @@ class RolloutEngine:
         ``[o+T+1, B]`` timesteps."""
         env_state, env_output = state.env_state, state.env_output
         agent_state, prev_action = state.agent_state, state.prev_action
-        next_unroll_state = state.next_unroll_state
-        # The core state at the timestep that starts the *next* unroll.
+        # The core state at the timestep that starts the *next* unroll
+        # (``state.next_unroll_state`` is not read).
         capture_step = self.unroll_length - self.overlap - 1
         new_timesteps = []
         for step in range(self.unroll_length):
             if step == capture_step:
-                next_unroll_state = agent_state
+                next_unroll_state = unroll_state(agent_state)
             env_state, env_output, agent_state, prev_action, timestep = (
                 self._step(env_state, env_output, agent_state, prev_action)
             )
@@ -307,17 +316,22 @@ class _GraphedRollout:
 
     A call copies the caller's state into the static inputs, replays and
     returns the outputs cloned, so every unroll and state it hands out is
-    the caller's own, as the eager loop's are. The agent's and env's
-    tensors are read in place (parameters stepped in place are seen); one
-    rebound to another tensor since the capture (``obs_norm``) has its
-    values copied into the captured tensor before each replay.
+    the caller's own, as the eager loop's are. A leaf of the agent state
+    that the body writes in place (GTrXL's memory) comes out as the static
+    input at the same position of the agent state: it is handed out as it
+    is, and when the next call passes it back, nothing is copied.
+    ``next_unroll_state``, which the body does not read, is no input. The
+    agent's and env's tensors are read in place (parameters stepped in
+    place are seen); one rebound to another tensor since the capture
+    (``obs_norm``) has its values copied into the captured tensor before
+    each replay.
     """
 
     def __init__(self, graph, body, state, watched, carried: int, device):
         self._graph = graph
         self._carried = carried
         self._device = device
-        self._inputs = pytree.tree_map(torch.clone, state)
+        self._inputs = pytree.tree_map(torch.clone, _body_inputs(state))
         self._input_leaves = pytree.tree_leaves(self._inputs)
         self._signature = _signature(state)
         # The captured tensors: the graph reads their memory, which these
@@ -355,16 +369,30 @@ class _GraphedRollout:
             if tensor.data_ptr() != captured.data_ptr():
                 captured.copy_(tensor)
         for static, given in zip(self._input_leaves,
-                                 pytree.tree_leaves(state)):
-            static.copy_(given)
+                                 pytree.tree_leaves(_body_inputs(state))):
+            if given is not static:
+                static.copy_(given)
         with span("rollout.graph_replay"):
             self._graph.replay()
         new_state, timesteps = self._outputs
         timesteps = pytree.tree_map(torch.clone, timesteps)
+        agent_leaves, agent_spec = pytree.tree_flatten(new_state.agent_state)
+        agent_state = pytree.tree_unflatten(
+            [out if out is static else out.clone()
+             for out, static in zip(
+                 agent_leaves,
+                 pytree.tree_leaves(self._inputs.agent_state))],
+            agent_spec)
         new_state = pytree.tree_map(
-            torch.clone, new_state._replace(carry_timesteps=()))
+            torch.clone,
+            new_state._replace(agent_state=(), carry_timesteps=()))
         return new_state._replace(
+            agent_state=agent_state,
             carry_timesteps=_tail_time(timesteps, self._carried)), timesteps
+
+
+def _body_inputs(state: RolloutState) -> RolloutState:
+    return state._replace(next_unroll_state=())
 
 
 def _out_of_memory(error: BaseException) -> bool:

@@ -41,6 +41,7 @@ from seed_rl_torch.rollout import (
     _concat_time,
     _stack_time,
     _tail_time,
+    unroll_state,
     zero_action_for_space,
 )
 
@@ -186,7 +187,7 @@ class HostRolloutEngine:
         timesteps = []
         for step in range(num_steps):
             if step == capture_at:
-                captured = agent_state
+                captured = unroll_state(agent_state)
             env_output_dev = self._to_device(env_output)
             agent_output, agent_state = agent.policy_step(
                 prev_action, env_output_dev, agent_state, self.generator,

@@ -9,7 +9,9 @@ runs on the CPU):
 - ``--agent=vtrace --env={catch,synthetic_atari}`` from 84x84 uint8 frames:
   ``AtariPolicyNet`` (4 stacked frames, LSTM 256) by default, or
   ``ImpalaDeep`` with ``--conv_net=impala_deep`` (``--remat_torso``
-  recomputes its torso in the backward pass);
+  recomputes its torso in the backward pass); ``--core=gtrxl`` replaces
+  ImpalaDeep's LSTM by the gated Transformer-XL core (``ImpalaGTrXL``: 12
+  layers, width 256, 8 heads of 64, memory 512), there and on ``dmlab``;
 - ``--agent=r2d2 --env=discrete_match`` (``VectorDuelingDQNNet``) and
   ``--agent=r2d2 --env={catch,synthetic_atari}`` (``DuelingLSTMDQNNet``,
   4 stacked frames, LSTM 512): the fused on-device learner with
@@ -109,10 +111,12 @@ and the agent/env pairs the JAX CLI cannot run, raise
 Where the JAX CLI accepts a flag and ignores it, or takes one it cannot
 use, this one raises ``ValueError``:
 ``--conv_net=atari``, ``--conv_net=impala_deep`` and ``--remat_torso``
-where no conv net reads them, a ``--lambda_`` other than its default under
-``--agent=vtrace``, the action-point counts outside ``--agent=ppo`` on a
-device env, ``--train_batches_per_step``, ``--update_target_every_n_step``
-and ``--sac_net=lstm`` on frames under ``--agent=sac``, HER on any env but
+where no conv net reads them, ``--core=gtrxl`` outside V-trace over
+ImpalaDeep's torso or in the remote modes, a ``--lambda_`` other than its
+default under ``--agent=vtrace``, the action-point counts outside
+``--agent=ppo`` on a device env, ``--train_batches_per_step``,
+``--update_target_every_n_step`` and ``--sac_net=lstm`` on frames under
+``--agent=sac``, HER on any env but
 ``bit_flipping`` or with windows shorter than ``unroll_length + 1``,
 ``--replay_ratio`` and ``--checkpoint_replay`` outside R2D2 and SAC on a
 host env (and ``--checkpoint_replay`` without ``--logdir``),
@@ -287,6 +291,11 @@ def parse_args(argv=None):
                         "frames, LSTM 256); impala_deep = the DmLab-class "
                         "deep resnet (ImpalaDeep); atari is refused (it "
                         "selects nothing in the JAX CLI either)")
+    p.add_argument("--core", default="lstm", choices=["lstm", "gtrxl"],
+                   help="the recurrent core of ImpalaDeep under "
+                        "--agent=vtrace: lstm = LSTM 256; gtrxl = the gated "
+                        "Transformer-XL (ImpalaGTrXL: 12 layers, width 256, "
+                        "8 heads of 64, memory 512)")
     p.add_argument("--remat_torso", action="store_true",
                    help="recompute the ImpalaDeep torso in the backward "
                         "pass instead of storing its activations")
@@ -460,6 +469,15 @@ def _refuse_unported(args):
     if args.remat_torso and not impala_deep:
         raise ValueError("--remat_torso needs ImpalaDeep: "
                          "--conv_net=impala_deep, or V-trace or PPO on dmlab")
+    if args.core == "gtrxl":
+        if args.agent != "vtrace" or not impala_deep:
+            raise ValueError("--core=gtrxl replaces ImpalaDeep's LSTM under "
+                             "--agent=vtrace: --conv_net=impala_deep on "
+                             "Atari-shaped frames, or --env=dmlab")
+        if args.run_mode in ("learner", "actor"):
+            raise ValueError("--core=gtrxl is not ported to the remote "
+                             "modes: the rollout engines alone copy the "
+                             "state its net writes in place")
     if args.agent == "vtrace" and args.lambda_ != LAMBDA_DEFAULT:
         raise ValueError("--lambda_ is read by --agent=ppo only; V-trace "
                          "keeps lambda 1 (the JAX CLI ignores the flag)")
@@ -959,9 +977,18 @@ def _policy_net(args, env, dist, device):
     ImpalaDeep on DmLab (or under --conv_net=impala_deep), AtariPolicyNet
     (LSTM 256) on Atari-shaped frames, GFootball on Football; None on a
     vector env."""
-    from seed_rl_torch.models import AtariPolicyNet, GFootball, ImpalaDeep
+    from seed_rl_torch.models import (
+        AtariPolicyNet,
+        GFootball,
+        ImpalaDeep,
+        ImpalaGTrXL,
+    )
 
     obs_shape = tuple(env.observation_spec().shape)
+    if args.core == "gtrxl":
+        return ImpalaGTrXL(num_actions=env.action_space.n,
+                           observation_shape=obs_shape,
+                           remat=args.remat_torso, seed=0, device=device)
     if args.conv_net == "impala_deep" or args.env == "dmlab":
         return ImpalaDeep(num_actions=env.action_space.n,
                           observation_shape=obs_shape,

@@ -22,6 +22,8 @@ the torsos in ``models/``): ``train_step``; ``rollout`` with
 eager loop's, and a capture's once, under ``rollout.capture``), or with
 ``rollout.graph_replay`` where a CUDA graph replays the steps;
 ``torso`` (every forward, a checkpointed torso's recompute too);
+``core`` (GTrXL's layers, acting and learning) with ``core.memory``
+(acting's episode mask and memory writes, ``models/gtrxl.py``);
 ``update`` with ``update.loss`` (R2D2: ``update.burn_in`` first),
 ``update.backward`` and ``update.optimizer``; ``replay.insert``,
 ``replay.priorities``, ``replay.sample``, ``replay.gather`` and

@@ -189,6 +189,29 @@ def test_the_graph_path_gives_the_eager_loop_s_unrolls(agent):
     assert graphed.capture_failures == 0
 
 
+# One step past the overlap (V-trace's unroll of 1, R2D2's burn-in of
+# unroll - 1): the state the next unroll stores is taken at the rollout's
+# first step, where the agent state is still the graph's static input.
+FIRST_STEP_STORES = {
+    "vtrace_unroll_1": lambda device: _vtrace(device, unroll=1),
+    "r2d2_burn_in_unroll_minus_1": lambda device: _r2d2(device, unroll=3,
+                                                        burn_in=2),
+}
+
+
+@pytest.mark.parametrize("agent", sorted(FIRST_STEP_STORES))
+def test_a_state_stored_at_the_first_step_is_the_eager_loop_s(agent):
+    make = FIRST_STEP_STORES[agent]
+    want, want_state = _rollouts(make(CPU), 6)
+    got, got_state = _rollouts(_graphed(make(CPU)), 6)
+    for g, w in zip(got, want):
+        _assert_trees_equal(g, w)
+    _assert_trees_equal(got_state, want_state)
+    # The stored states differ from unroll to unroll.
+    assert not torch.equal(pytree.tree_leaves(want[-1].agent_state)[0],
+                           pytree.tree_leaves(want[-2].agent_state)[0])
+
+
 @pytest.mark.parametrize("agent", sorted(ENGINES))
 def test_kept_unrolls_are_the_caller_s_own(agent):
     # The benchmark's check keeps the first three unrolls by reference and
