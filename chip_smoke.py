@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero:
      (640 envs, 30 of them eval, unroll 80, burn-in 40, batch 64, n 5,
      gamma 0.997, lr 1e-4, clip 80, a 10k-unroll replay): 2 warmup
      rollouts, then 4 train steps, with the n-step launch count reset just
-     before; check one launch per insert and per train batch, everything
+     before; check one launch per insert and per train batch (the n-step
+     kernel's runs, counted on the card, so that each replay of the
+     update's CUDA graph counts as it runs; nstep_kernel.runs()), everything
      on the card, finite metrics, and the kernel against its plain version
      on the run's own sampled batch (loss and priorities, and the gradient
      of the summed loss in the Q values); time the step and its halves;
@@ -909,6 +911,7 @@ def _reset_launch_counts():
     from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
     vtrace_kernel.launches = nstep_kernel.launches = 0
+    nstep_kernel.reset_runs()
 
 
 def run_r2d2(card, env):
@@ -925,7 +928,7 @@ def run_r2d2(card, env):
     learner, state, metrics = train.main(_r2d2_argv(env))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = nstep_kernel.launches
+    launches = nstep_kernel.runs()
     want = R2D2_WARMUPS + state.step * (1 + R2D2_BATCHES_PER_STEP)
     if state.step != R2D2_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
@@ -1036,7 +1039,7 @@ def run_ppo(card, name):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
     launches = {"vtrace": vtrace_kernel.launches,
-                "nstep": nstep_kernel.launches}
+                "nstep": nstep_kernel.runs()}
     if state.step != PPO_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
                            f"{PPO_STEPS}")
@@ -1114,7 +1117,7 @@ def run_sac(card, name):
         sac.SACUpdate._move_target = move_target
     wall_s = time.perf_counter() - start
     launches = {"vtrace": vtrace_kernel.launches,
-                "nstep": nstep_kernel.launches}
+                "nstep": nstep_kernel.runs()}
     if state.step != SAC_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
                            f"{SAC_STEPS}")
@@ -1314,7 +1317,7 @@ def _event_records(path):
 def _launches():
     from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
-    return {"vtrace": vtrace_kernel.launches, "nstep": nstep_kernel.launches}
+    return {"vtrace": vtrace_kernel.launches, "nstep": nstep_kernel.runs()}
 
 
 def _finite(name, metrics):
@@ -3772,7 +3775,7 @@ def run_bench(smi, device):
                 line = fn(device, calls=1, windows=1)
             torch.cuda.synchronize()
             launches[fn.__name__] = (vtrace_kernel.launches,
-                                     nstep_kernel.launches)
+                                     nstep_kernel.runs())
             if line is None:
                 if out.getvalue():
                     raise RuntimeError(f"bench {fn.__name__} printed "

@@ -34,6 +34,16 @@ target sync needs no device sync).
 items and initial priorities, and trains on batches it samples, through
 the learner. Both learners share the update (``R2D2Update``): the nets,
 the optimizer, and one batch's burn-in loss, clip and Adam step.
+
+On a CUDA device, and where no mesh reduction is active, one batch's
+device work up to Adam (the time-major transposes, both nets' burn-in and
+suffix unrolls, B2, the weighted mean and the backward) is one CUDA graph
+(``cuda_graph.GraphedCalls``): the first batch at the batch's shapes runs it
+eagerly, the second captures it and every batch replays it, so the host
+launches one graph where it launched thousands of kernels. Adam stays
+eager and reads the gradients the replay wrote. Under a mesh the
+reductions run through the process group, which a graph cannot hold, so
+the update stays eager there, as it does on the CPU.
 """
 
 import copy
@@ -44,6 +54,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from seed_rl_torch import distributions as pd
+from seed_rl_torch.cuda_graph import Captured, GraphedCalls, tensors_of
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops.cuda import nstep_kernel
 from seed_rl_torch.parallel import collectives
@@ -312,7 +323,7 @@ def _mean_metrics(history: List[Dict[str, torch.Tensor]]):
     }
 
 
-class R2D2Update:
+class R2D2Update(GraphedCalls):
     """The online and target nets, the optimizer and one batch's update,
     shared by ``R2D2Learner`` and ``R2D2HostLearner``.
 
@@ -342,6 +353,10 @@ class R2D2Update:
         self.num_training_envs = (num_envs - config.num_eval_envs
                                   if num_training_envs is None
                                   else num_training_envs)
+        self.device = next(self.net.parameters()).device
+        # One batch's forward and backward as one CUDA graph on a CUDA
+        # device (``optimize``); eager elsewhere.
+        self._init_graphs(self.device, "update", "the R2D2 update")
 
     def parameters(self) -> List[torch.nn.Parameter]:
         """Everything the optimizer updates: the online network."""
@@ -370,7 +385,25 @@ class R2D2Update:
         """One optimization batch on item-major ``items``: burn-in loss
         weighted by ``weights``, clip + Adam on the online net. Returns
         (priorities f32[B], logs)."""
+        if self._graph_class is None or collectives.active() is not None:
+            loss, priorities, _ = self._forward_backward(items, weights)
+        else:
+            loss, priorities = self._graphed(items, weights)
+        grad_norm = self.optimizer.step()
+        logs = {
+            "losses/td": loss,
+            "grad/norm": grad_norm,
+            "replay/sampled_priority_mean": collectives.mean(priorities),
+            "replay/importance_weight_mean": collectives.mean(weights),
+        }
+        return priorities, logs
+
+    def _forward_backward(self, items: StoredUnroll, weights: torch.Tensor):
+        """One batch's device work up to Adam: the loss and priorities, and
+        the online net's gradients of this batch alone. Returns (loss,
+        priorities, the gradients by parameter index)."""
         config = self.config
+        self.optimizer.zero_grad()
         prev_actions, env_outputs, agent_outputs = _time_major(
             (items.prev_actions, items.env_outputs, items.agent_outputs))
         with span("update.loss"):
@@ -386,17 +419,49 @@ class R2D2Update:
             )
         # Means over the batch: over every rank's share under a mesh.
         loss = collectives.mean(loss * weights)
-        self.optimizer.zero_grad()
         with span("update.backward"):
             loss.backward()
-        grad_norm = self.optimizer.step()
-        logs = {
-            "losses/td": loss.detach(),
-            "grad/norm": grad_norm,
-            "replay/sampled_priority_mean": collectives.mean(priorities),
-            "replay/importance_weight_mean": collectives.mean(weights),
-        }
-        return priorities, logs
+        grads = {i: p.grad for i, p in enumerate(self.parameters())
+                 if p.grad is not None}
+        return loss.detach(), priorities, grads
+
+    def _graphed(self, items: StoredUnroll, weights: torch.Tensor):
+        """``_forward_backward`` by the graph (``GraphedCalls``). Returns
+        (loss, priorities); the parameters hold the gradients."""
+        watched = tensors_of((self.net, self.target_net))
+        return self._through_graph(
+            lambda: self._forward_backward(items, weights)[:2],
+            lambda graph_class: _GraphedUpdate(
+                graph_class(device=self.device),
+                lambda inputs: self._forward_backward(*inputs),
+                (items, weights), watched, self.parameters()),
+            (items, weights), watched)
+
+
+class _GraphedUpdate(Captured):
+    """One batch's forward and backward captured once, over static inputs.
+
+    A call copies the batch and its importance weights into the static
+    inputs, replays, gives each parameter the loss reached the gradient
+    the replay wrote (as ``.grad``; the capture's gradients were made
+    fresh, so a replay's are its batch's alone) and returns the loss and
+    priorities cloned. The nets' tensors are read in place: Adam's steps,
+    ``sync_target``'s copies and loaded weights reach the next replay; a
+    tensor rebound since the capture does not fit.
+    """
+
+    def __init__(self, graph, body, inputs, watched, params):
+        self._params = params
+        super().__init__(graph, body, inputs, watched)
+
+    def __call__(self, inputs, watched):
+        self._copy_in(inputs)
+        with span("update.graph_replay"):
+            self._graph.replay()
+        loss, priorities, grads = self._outputs
+        for i, p in enumerate(self._params):
+            p.grad = grads.get(i)
+        return loss.clone(), priorities.clone()
 
 
 class R2D2Learner(R2D2Update):
@@ -608,7 +673,6 @@ class R2D2HostLearner(R2D2Update):
                  optimizer: Callable[[List[torch.Tensor]], Any],
                  num_envs: int, unroll_length: int):
         super().__init__(agent, config, optimizer, num_envs)
-        self.device = next(agent.net.parameters()).device
         self.unroll_length = unroll_length
         self.frames_per_cycle = (
             unroll_length * num_envs * config.num_action_repeats)

@@ -27,13 +27,12 @@ The graph holds its memory pool, about the rollout's working set, for as
 long as the engine lives.
 """
 
-import gc
-import warnings
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
+from seed_rl_torch.cuda_graph import Captured, GraphedCalls, tensors_of
 from seed_rl_torch.envs.core import BatchedEnv, BatchedEnvState
 from seed_rl_torch.types import EnvOutput
 from seed_rl_torch.utils.profiling import span
@@ -93,7 +92,7 @@ def _tail_time(tree, n):
     return pytree.tree_map(lambda x: x[-n:], tree)
 
 
-class RolloutEngine:
+class RolloutEngine(GraphedCalls):
     """Generates fixed-length unrolls by stepping envs + policy on device.
 
     Args:
@@ -139,12 +138,7 @@ class RolloutEngine:
         )
         # The rollout as one CUDA graph on a CUDA device (``rollout``); the
         # eager loop elsewhere.
-        self._graph_class = CudaGraph if self.device.type == "cuda" else None
-        self._graph: Optional[_GraphedRollout] = None
-        self._warm = False  # an eager call has run with no graph held
-        self.captures = 0
-        self.graph_replays = 0
-        self.capture_failures = 0
+        self._init_graphs(self.device, "rollout", "the rollout")
 
     def _batch_zero_action(self, batch):
         zero = self._zero_action
@@ -235,83 +229,18 @@ class RolloutEngine:
                                  timesteps=timesteps)
 
     def _graphed(self, state: RolloutState) -> Tuple[RolloutState, Timestep]:
-        """``_body`` by the graph: eager on the first call at the engine's
-        shapes, captured on the second, replayed from then on."""
-        watched = _tensors_of((self.agent, self.env))
-        graph = self._graph
-        if graph is not None and not graph.fits(state, watched):
-            graph = self._graph = None
-            self._warm = False
-        if graph is None:
-            if not self._warm:
-                self._warm = True
-                return self._body(state)
-            graph = self._capture(state, watched)
-            if graph is None:
-                return self._body(state)
-        self.graph_replays += 1
-        return graph(state, watched)
-
-    def _capture(self, state, watched) -> Optional["_GraphedRollout"]:
-        """The body captured with ``state``'s shapes, or None (and the
-        eager loop for good) where the capture refuses it: a body that
-        waits for the host, for one, cannot be captured. Running out of
-        memory is no refusal and raises."""
-        generators = [self.generator, self.env.generator]
-        with span("rollout.capture"):
-            try:
-                graph = _GraphedRollout(
-                    self._graph_class(generators), self._body, state,
-                    watched, self.overlap + 1, self.device)
-            except RuntimeError as e:
-                if _out_of_memory(e):
-                    raise
-                self._graph_class = None
-                self.capture_failures += 1
-                warnings.warn(
-                    f"the rollout could not be captured as a CUDA graph "
-                    f"and runs eagerly from now on: {e}", RuntimeWarning)
-                return None
-        self.captures += 1
-        self._graph = graph
-        return graph
+        """``_body`` by the graph (``GraphedCalls``). A body that waits for
+        the host, for one, cannot be captured."""
+        watched = tensors_of((self.agent, self.env))
+        return self._through_graph(
+            lambda: self._body(state),
+            lambda graph_class: _GraphedRollout(
+                graph_class([self.generator, self.env.generator]),
+                self._body, state, watched, self.overlap + 1, self.device),
+            state, watched)
 
 
-class CudaGraph:
-    """``torch.cuda.CUDAGraph`` as ``RolloutEngine`` drives it.
-
-    ``capture(fn)`` records ``fn``'s work on a side stream of the
-    generators' device with ``generators`` registered, and returns its
-    outputs, which the graph's memory pool holds; a capture draws nothing.
-    Each ``replay()`` reruns the work on that device's current stream,
-    drawing from each generator what the eager calls would draw next and
-    advancing it as far.
-    """
-
-    def __init__(self, generators: Sequence[torch.Generator]):
-        self._device = generators[0].device
-        self._graph = torch.cuda.CUDAGraph()
-        for generator in generators:
-            self._graph.register_generator_state(generator)
-
-    def capture(self, fn):
-        # ``torch.cuda.graph`` empties the cache for the graph's pool; the
-        # memory of dead objects in reference cycles (a learner
-        # ``train.main`` built is one) only a collection frees.
-        gc.collect()
-        # A stream of this device's own, and "thread_local": another
-        # thread's CUDA calls (a logger's copies) do not end the capture.
-        with torch.cuda.device(self._device), torch.cuda.graph(
-                self._graph, stream=torch.cuda.Stream(),
-                capture_error_mode="thread_local"):
-            return fn()
-
-    def replay(self):
-        with torch.cuda.device(self._device):
-            self._graph.replay()
-
-
-class _GraphedRollout:
+class _GraphedRollout(Captured):
     """The rollout's body captured once, over static inputs.
 
     A call copies the caller's state into the static inputs, replays and
@@ -328,24 +257,16 @@ class _GraphedRollout:
     """
 
     def __init__(self, graph, body, state, watched, carried: int, device):
-        self._graph = graph
         self._carried = carried
         self._device = device
-        self._inputs = pytree.tree_map(torch.clone, _body_inputs(state))
-        self._input_leaves = pytree.tree_leaves(self._inputs)
-        self._signature = _signature(state)
-        # The captured tensors: the graph reads their memory, which these
-        # references keep.
-        self._watched = dict(watched)
-        self._watched_signature = _signature(watched)
-        self._outputs = graph.capture(lambda: body(self._inputs))
+        super().__init__(graph, body, _body_inputs(state), watched)
 
     def fits(self, state, watched) -> bool:
         """Whether a replay computes ``_body(state)`` with the agent and
         env as they are now; else a capture has to."""
-        if (_signature(state) != self._signature
-                or _signature(watched) != self._watched_signature):
-            return False
+        return super().fits(_body_inputs(state), watched)
+
+    def _watched_fit(self, watched) -> bool:
         live = {t.data_ptr() for t in watched.values()}
         writes = {}
         for path, tensor in watched.items():
@@ -368,10 +289,7 @@ class _GraphedRollout:
             captured = self._watched[path]
             if tensor.data_ptr() != captured.data_ptr():
                 captured.copy_(tensor)
-        for static, given in zip(self._input_leaves,
-                                 pytree.tree_leaves(_body_inputs(state))):
-            if given is not static:
-                static.copy_(given)
+        self._copy_in(_body_inputs(state))
         with span("rollout.graph_replay"):
             self._graph.replay()
         new_state, timesteps = self._outputs
@@ -393,63 +311,6 @@ class _GraphedRollout:
 
 def _body_inputs(state: RolloutState) -> RolloutState:
     return state._replace(next_unroll_state=())
-
-
-def _out_of_memory(error: BaseException) -> bool:
-    """Whether ``error``, or an error it was raised in handling, is the
-    card running out of memory (the allocator's ``OutOfMemoryError``, or
-    CUDA's own "out of memory" error)."""
-    while error is not None:
-        if (isinstance(error, torch.OutOfMemoryError)
-                or "out of memory" in str(error)):
-            return True
-        error = error.__cause__ or error.__context__
-    return False
-
-
-def _signature(tree):
-    """The tree's structure and each leaf's shape, dtype and device."""
-    leaves, spec = pytree.tree_flatten(tree)
-    return spec, [(t.shape, t.dtype, t.device) for t in leaves]
-
-
-def _tensors_of(root) -> Dict[tuple, torch.Tensor]:
-    """The non-empty tensors reachable from ``root``, by path: through
-    lists, tuples and dicts, a module's parameters, buffers and submodules
-    (and a port module's public attributes), and the attributes of the
-    port's other objects."""
-    found: Dict[tuple, torch.Tensor] = {}
-    seen = set()
-
-    def walk(obj, path):
-        if isinstance(obj, torch.nn.Module):
-            items = [*obj._parameters.items(), *obj._buffers.items(),
-                     *obj._modules.items()]
-            if _ours(obj):
-                items += [(k, v) for k, v in vars(obj).items()
-                          if not k.startswith("_")]
-        elif isinstance(obj, (list, tuple)):
-            items = enumerate(obj)
-        elif isinstance(obj, dict):
-            items = obj.items()
-        else:
-            items = getattr(obj, "__dict__", {}).items()
-        for key, value in items:
-            if isinstance(value, torch.Tensor):
-                if value.numel():
-                    found[path + (key,)] = value
-            elif id(value) not in seen and (
-                    isinstance(value, (list, tuple, dict, torch.nn.Module))
-                    or _ours(value)):
-                seen.add(id(value))
-                walk(value, path + (key,))
-
-    walk(root, ())
-    return found
-
-
-def _ours(obj) -> bool:
-    return type(obj).__module__.startswith("seed_rl_torch.")
 
 
 def zero_action_for_space(space, device=None):

@@ -25,7 +25,10 @@ eager loop's, and a capture's once, under ``rollout.capture``), or with
 ``core`` (GTrXL's layers, acting and learning) with ``core.memory``
 (acting's episode mask and memory writes, ``models/gtrxl.py``);
 ``update`` with ``update.loss`` (R2D2: ``update.burn_in`` first),
-``update.backward`` and ``update.optimizer``; ``replay.insert``,
+``update.backward`` and ``update.optimizer`` (R2D2 on the card: the
+first two once under ``update.capture``, then ``update.graph_replay``
+where a CUDA graph replays the batch's forward and backward);
+``replay.insert``,
 ``replay.priorities``, ``replay.sample``, ``replay.gather`` and
 ``replay.update_priorities``.
 

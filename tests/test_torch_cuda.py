@@ -148,18 +148,41 @@ def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta,
     q_kernel = q.clone().requires_grad_(True)
     q_plain = q.clone().requires_grad_(True)
     kw = dict(gamma=gamma, n_steps=n, eta=eta)
-    before = nstep_kernel.launches
+    before, runs = nstep_kernel.launches, nstep_kernel.runs()
     loss, pri = nstep_kernel.td_loss_and_priorities(q_kernel, **kwargs, **kw)
     want_loss, want_pri = value_ops.td_loss_and_priorities(
         q_plain, **kwargs, **kw)
     torch.cuda.synchronize()
     assert nstep_kernel.launches == before + 1
+    assert nstep_kernel.runs() == runs + 1
     assert nstep_kernel.launch_shape(T, B, n).smem_bytes <= BLOCK_SMEM_BYTES
     torch.testing.assert_close(loss, want_loss, **TOL)
     torch.testing.assert_close(pri, want_pri, **TOL)
     (g_kernel,) = torch.autograd.grad(loss.sum(), q_kernel)
     (g_plain,) = torch.autograd.grad(want_loss.sum(), q_plain)
     torch.testing.assert_close(g_kernel, g_plain, rtol=1e-3, atol=1e-4)
+
+
+def test_nstep_kernel_counts_each_replay_of_a_captured_launch(cuda):
+    # The host makes one launch, at the capture; the card counts the eager
+    # call and each replay.
+    kwargs = _nstep_inputs(11, 64, 4, 5, cuda, torch.bool)
+    kw = dict(gamma=0.997, n_steps=5)
+    want_loss, want_pri = nstep_kernel.td_loss_and_priorities(**kwargs, **kw)
+    before, runs = nstep_kernel.launches, nstep_kernel.runs()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss, pri = nstep_kernel.td_loss_and_priorities(**kwargs, **kw)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert nstep_kernel.launches == before + 1
+    assert nstep_kernel.runs() == runs + 3
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=0)
+    torch.testing.assert_close(pri, want_pri, rtol=0, atol=0)
+    nstep_kernel.reset_runs()
+    graph.replay()
+    assert nstep_kernel.runs() == 1
 
 
 @pytest.mark.parametrize("launch_shape,want", [
@@ -199,7 +222,7 @@ def test_nstep_kernel_refuses_what_it_does_not_take(cuda):
 def test_r2d2_train_step_runs_on_the_card(cuda):
     from seed_rl_torch import train
 
-    nstep_kernel.launches = 0
+    nstep_kernel.reset_runs()
     learner, state, metrics = train.main([
         "--agent=r2d2", "--env=discrete_match", "--num_envs=64",
         "--num_eval_envs=4", "--unroll_length=10", "--burn_in=4",
@@ -208,8 +231,9 @@ def test_r2d2_train_step_runs_on_the_card(cuda):
         "--total_environment_frames=1280", "--steps_per_call=1",
         "--log_every_steps=1",
     ])
-    # 2 warmup rollouts, then 2 steps of 1 insert + 2 batches.
-    assert state.step == 2 and nstep_kernel.launches == 2 + 2 * 3
+    # 2 warmup rollouts, then 2 steps of 1 insert + 2 batches (counted on
+    # the card: the update's graph replays B2).
+    assert state.step == 2 and nstep_kernel.runs() == 2 + 2 * 3
     assert all(math.isfinite(float(v)) for v in metrics.values())
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
@@ -367,7 +391,7 @@ def test_r2d2_from_pixels_launches_the_kernel_per_insert_and_batch(cuda,
     from seed_rl_torch import train
     from seed_rl_torch.models import DuelingLSTMDQNNet
 
-    nstep_kernel.launches = 0
+    nstep_kernel.reset_runs()
     learner, state, metrics = train.main([
         "--agent=r2d2", f"--env={env}", "--num_envs=16", "--num_eval_envs=2",
         "--unroll_length=10", "--burn_in=4", "--batch_size=8",
@@ -376,9 +400,9 @@ def test_r2d2_from_pixels_launches_the_kernel_per_insert_and_batch(cuda,
         "--steps_per_call=1", "--log_every_steps=1",
     ])
     # 2 warmup inserts of 14 training envs, then 2 steps of 1 insert + 2
-    # batches.
+    # batches, counted on the card.
     assert isinstance(learner.net, DuelingLSTMDQNNet)
-    assert state.step == 2 and nstep_kernel.launches == 2 + 2 * 3
+    assert state.step == 2 and nstep_kernel.runs() == 2 + 2 * 3
     assert all(math.isfinite(float(v)) for v in metrics.values())
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
