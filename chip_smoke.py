@@ -26,19 +26,20 @@ Phases, in order; any failure exits non-zero:
      for comparison;
   5. train V-trace on the toy env through seed_rl_torch.train.main at the
      default MLPAndLSTM width (num_envs=1024, unroll_length=32), with the
-     launch counts reset just before; check one V-trace launch per train
-     step, everything on the card, finite metrics, and the kernel against
-     its plain version on the run's own unroll; time the step, its rollout
+     kernels' run counts reset just before; check one V-trace run per train
+     step (counted on the card, as every count of a hand kernel here is:
+     ops/cuda/run_count.py), everything on the card, finite metrics, and
+     the kernel against its plain version on the run's own unroll; time
+     the step, its rollout
      and update halves, its device busy time, launches and idle share
      (torch.profiler), and print the peak device memory;
   6. train R2D2 on discrete_match through seed_rl_torch.train.main at the
      default VectorDuelingDQNNet width with the reference Atari R2D2 knobs
      (640 envs, 30 of them eval, unroll 80, burn-in 40, batch 64, n 5,
      gamma 0.997, lr 1e-4, clip 80, a 10k-unroll replay): 2 warmup
-     rollouts, then 4 train steps, with the n-step launch count reset just
-     before; check one launch per insert and per train batch (the n-step
-     kernel's runs, counted on the card, so that each replay of the
-     update's CUDA graph counts as it runs; nstep_kernel.runs()), everything
+     rollouts, then 4 train steps, with the run counts reset just before;
+     check one n-step run per insert and per train batch (each replay of
+     the update's CUDA graph counts as it runs), everything
      on the card, finite metrics, and the kernel against its plain version
      on the run's own sampled batch (loss and priorities, and the gradient
      of the summed loss in the Q values); time the step and its halves;
@@ -828,7 +829,7 @@ def run_vtrace(card, name):
     learner, state, metrics = train.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = vtrace_kernel.launches
+    launches = _launches()["vtrace"]
     if state.step != path.steps:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
                            f"{path.steps}")
@@ -907,11 +908,11 @@ def run_eval_twice(learner):
 
 
 def _reset_launch_counts():
-    """Every kernel's launch count to 0, just before a path is driven."""
-    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+    """Both hand kernels' run counts (``ops/cuda/run_count.py``, kept on
+    the card) to 0, just before a path is driven."""
+    from seed_rl_torch.ops.cuda import run_count
 
-    vtrace_kernel.launches = nstep_kernel.launches = 0
-    nstep_kernel.reset_runs()
+    run_count.reset()
 
 
 def run_r2d2(card, env):
@@ -919,7 +920,6 @@ def run_r2d2(card, env):
     knobs; returns (the path's n-step launches, max |kernel - plain| on
     the run's own batch)."""
     from seed_rl_torch import train
-    from seed_rl_torch.ops.cuda import nstep_kernel
 
     name = f"r2d2 {env}"
     torch.cuda.reset_peak_memory_stats()
@@ -928,7 +928,7 @@ def run_r2d2(card, env):
     learner, state, metrics = train.main(_r2d2_argv(env))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = nstep_kernel.runs()
+    launches = _launches()["nstep"]
     want = R2D2_WARMUPS + state.step * (1 + R2D2_BATCHES_PER_STEP)
     if state.step != R2D2_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
@@ -1020,7 +1020,6 @@ def run_ppo(card, name):
     launch counts reset just before it; returns the path's launches of the
     hand kernels (none: its advantages are plain PyTorch)."""
     from seed_rl_torch import train
-    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
     path = PPO_PATHS[name]
     updates_per_step = path.epochs * path.minibatches
@@ -1038,8 +1037,7 @@ def run_ppo(card, name):
     learner, state, metrics = train.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = {"vtrace": vtrace_kernel.launches,
-                "nstep": nstep_kernel.runs()}
+    launches = _launches()
     if state.step != PPO_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
                            f"{PPO_STEPS}")
@@ -1090,7 +1088,6 @@ def run_sac(card, name):
     hand kernels (none)."""
     from seed_rl_torch import train
     from seed_rl_torch.agents import sac
-    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
     path = SAC_PATHS[name]
     argv = [
@@ -1116,8 +1113,7 @@ def run_sac(card, name):
     finally:
         sac.SACUpdate._move_target = move_target
     wall_s = time.perf_counter() - start
-    launches = {"vtrace": vtrace_kernel.launches,
-                "nstep": nstep_kernel.runs()}
+    launches = _launches()
     if state.step != SAC_STEPS:
         raise RuntimeError(f"{name}: trained {state.step} steps, want "
                            f"{SAC_STEPS}")
@@ -1315,9 +1311,13 @@ def _event_records(path):
 
 
 def _launches():
-    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+    """Both hand kernels' runs since ``_reset_launch_counts``, counted on
+    the card: a replay of a CUDA graph that captured a launch counts as a
+    run."""
+    from seed_rl_torch.ops.cuda import nstep_kernel, run_count, vtrace_kernel
 
-    return {"vtrace": vtrace_kernel.launches, "nstep": nstep_kernel.runs()}
+    return {"vtrace": run_count.read(vtrace_kernel.KERNEL_NAME),
+            "nstep": run_count.read(nstep_kernel.KERNEL_NAME)}
 
 
 def _finite(name, metrics):
@@ -3761,7 +3761,6 @@ def run_bench(smi, device):
     import io
 
     from seed_rl_torch import bench
-    from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
 
     lines, launches = [], {}
     with BenchRecorder() as recorder:
@@ -3774,8 +3773,7 @@ def run_bench(smi, device):
             with contextlib.redirect_stdout(out):
                 line = fn(device, calls=1, windows=1)
             torch.cuda.synchronize()
-            launches[fn.__name__] = (vtrace_kernel.launches,
-                                     nstep_kernel.runs())
+            launches[fn.__name__] = tuple(_launches().values())
             if line is None:
                 if out.getvalue():
                     raise RuntimeError(f"bench {fn.__name__} printed "

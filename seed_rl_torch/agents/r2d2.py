@@ -54,7 +54,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from seed_rl_torch import distributions as pd
-from seed_rl_torch.cuda_graph import Captured, GraphedCalls, tensors_of
+from seed_rl_torch.cuda_graph import GraphedCalls, tensors_of
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops.cuda import nstep_kernel
 from seed_rl_torch.parallel import collectives
@@ -386,9 +386,11 @@ class R2D2Update(GraphedCalls):
         weighted by ``weights``, clip + Adam on the online net. Returns
         (priorities f32[B], logs)."""
         if self._graph_class is None or collectives.active() is not None:
-            loss, priorities, _ = self._forward_backward(items, weights)
+            loss, priorities, _ = self._forward_backward((items, weights))
         else:
-            loss, priorities = self._graphed(items, weights)
+            loss, priorities, _ = self._through_graph(
+                self._forward_backward, (items, weights),
+                tensors_of((self.net, self.target_net)), (), self._hand_out)
         grad_norm = self.optimizer.step()
         logs = {
             "losses/td": loss,
@@ -398,10 +400,12 @@ class R2D2Update(GraphedCalls):
         }
         return priorities, logs
 
-    def _forward_backward(self, items: StoredUnroll, weights: torch.Tensor):
-        """One batch's device work up to Adam: the loss and priorities, and
-        the online net's gradients of this batch alone. Returns (loss,
-        priorities, the gradients by parameter index)."""
+    def _forward_backward(self, inputs: Tuple[StoredUnroll, torch.Tensor]):
+        """One batch's device work up to Adam, on (items, importance
+        weights): the loss and priorities, and the online net's gradients of
+        this batch alone. Returns (loss, priorities, the gradients by
+        parameter index)."""
+        items, weights = inputs
         config = self.config
         self.optimizer.zero_grad()
         prev_actions, env_outputs, agent_outputs = _time_major(
@@ -425,43 +429,16 @@ class R2D2Update(GraphedCalls):
                  if p.grad is not None}
         return loss.detach(), priorities, grads
 
-    def _graphed(self, items: StoredUnroll, weights: torch.Tensor):
-        """``_forward_backward`` by the graph (``GraphedCalls``). Returns
-        (loss, priorities); the parameters hold the gradients."""
-        watched = tensors_of((self.net, self.target_net))
-        return self._through_graph(
-            lambda: self._forward_backward(items, weights)[:2],
-            lambda graph_class: _GraphedUpdate(
-                graph_class(device=self.device),
-                lambda inputs: self._forward_backward(*inputs),
-                (items, weights), watched, self.parameters()),
-            (items, weights), watched)
-
-
-class _GraphedUpdate(Captured):
-    """One batch's forward and backward captured once, over static inputs.
-
-    A call copies the batch and its importance weights into the static
-    inputs, replays, gives each parameter the loss reached the gradient
-    the replay wrote (as ``.grad``; the capture's gradients were made
-    fresh, so a replay's are its batch's alone) and returns the loss and
-    priorities cloned. The nets' tensors are read in place: Adam's steps,
-    ``sync_target``'s copies and loaded weights reach the next replay; a
-    tensor rebound since the capture does not fit.
-    """
-
-    def __init__(self, graph, body, inputs, watched, params):
-        self._params = params
-        super().__init__(graph, body, inputs, watched)
-
-    def __call__(self, inputs, watched):
-        self._copy_in(inputs)
-        with span("update.graph_replay"):
-            self._graph.replay()
-        loss, priorities, grads = self._outputs
-        for i, p in enumerate(self._params):
+    def _hand_out(self, outputs, inputs):
+        """A replay's outputs: each parameter the loss reached is given the
+        gradient the replay wrote (as ``.grad``; the capture's gradients
+        were made fresh, so a replay's are its batch's alone), and the loss
+        and priorities are cloned."""
+        del inputs
+        loss, priorities, grads = outputs
+        for i, p in enumerate(self.parameters()):
             p.grad = grads.get(i)
-        return loss.clone(), priorities.clone()
+        return loss.clone(), priorities.clone(), grads
 
 
 class R2D2Learner(R2D2Update):

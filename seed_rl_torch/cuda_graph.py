@@ -1,16 +1,11 @@
 """CUDA graphs as the port's learners drive them.
 
-``CudaGraph`` captures one body of device work and replays it;
 ``RolloutEngine`` (``rollout.py``) captures its T env and policy steps,
-``R2D2Update`` (``agents/r2d2.py``) one batch's forward and backward.
-Both inherit ``GraphedCalls``, the steps from eager to replayed: the first
-call at the body's shapes runs it eagerly (which warms cuDNN, lazy inits
-and the allocator), the second captures it and every call replays it.
-``Captured`` is one capture over static inputs. The helpers tell whether
-a capture still computes what the caller's tensors would: ``signature``
-(structure, shapes, dtypes, devices) and ``tensors_of`` (every tensor an
-object reads, by path), and whether a failed capture ran out of memory
-(``out_of_memory``), which no caller takes for a refusal.
+``R2D2Update`` (``agents/r2d2.py``) one batch's forward and backward. Each
+inherits ``GraphedCalls`` and hands it a body and a hand-out; every other
+decision about a graphed body is made here. The helpers: ``signature``
+(structure, shapes, dtypes, devices), ``tensors_of`` (every tensor an
+object reads, by path) and ``out_of_memory``.
 """
 
 import gc
@@ -27,17 +22,14 @@ class CudaGraph:
     """``torch.cuda.CUDAGraph`` as the port's graphed bodies drive it.
 
     ``capture(fn)`` records ``fn``'s work on a side stream of ``device``
-    (by default the generators') with ``generators`` registered, and
-    returns its outputs, which the graph's memory pool holds; a capture
-    draws nothing. Each ``replay()`` reruns the work on that device's
-    current stream, drawing from each generator what the eager calls would
-    draw next and advancing it as far.
+    with ``generators`` registered, and returns its outputs, which the
+    graph's memory pool holds; a capture draws nothing. Each ``replay()``
+    reruns the work on that device's current stream, drawing from each
+    generator what the eager calls would draw next and advancing it as far.
     """
 
-    def __init__(self, generators: Sequence[torch.Generator] = (),
-                 device=None):
-        self._device = (generators[0].device if device is None
-                        else torch.device(device))
+    def __init__(self, generators: Sequence[torch.Generator], device):
+        self.device = torch.device(device)
         self._graph = torch.cuda.CUDAGraph()
         for generator in generators:
             self._graph.register_generator_state(generator)
@@ -49,51 +41,78 @@ class CudaGraph:
         gc.collect()
         # A stream of this device's own, and "thread_local": another
         # thread's CUDA calls (a logger's copies) do not end the capture.
-        with torch.cuda.device(self._device), torch.cuda.graph(
+        with torch.cuda.device(self.device), torch.cuda.graph(
                 self._graph, stream=torch.cuda.Stream(),
                 capture_error_mode="thread_local"):
             return fn()
 
     def replay(self):
-        with torch.cuda.device(self._device):
+        with torch.cuda.device(self.device):
             self._graph.replay()
 
 
 class Captured:
     """A body of device work captured once, over static inputs.
 
-    ``inputs`` are cloned into the static inputs, which the capture reads
-    (``body(self._inputs)``); ``watched``, the tensors the body reads in
-    place by path, are kept, since the graph reads their memory. ``fits``
-    tells whether a replay computes the body on other inputs and the
-    watched tensors as they are now: the same signatures, and
-    (``_watched_fit``, by default) each watched tensor the one captured.
-    ``_copy_in`` copies a call's inputs into the static ones.
+    ``inputs`` are cloned into the static inputs (``self.inputs``), which
+    the capture reads; ``watched``, the tensors the body reads in place by
+    path, are kept, since the graph reads their memory: a tensor written
+    in place (a parameter Adam steps) reaches the next replay as it is.
+    ``fits`` tells whether a replay computes the body on other inputs and
+    the watched tensors as they are now: the same signatures, and each
+    watched tensor the one captured or rebound to one whose values can be
+    copied into it. A call copies those values and then the inputs in,
+    replays under ``replay_span`` and returns the static outputs.
     """
 
-    def __init__(self, graph, body, inputs, watched):
+    def __init__(self, graph, body, inputs, watched, replay_span: str):
         self._graph = graph
-        self._inputs = pytree.tree_map(torch.clone, inputs)
-        self._input_leaves = pytree.tree_leaves(self._inputs)
+        self.inputs = pytree.tree_map(torch.clone, inputs)
+        self._input_leaves = pytree.tree_leaves(self.inputs)
         self._signature = signature(inputs)
         self._watched = dict(watched)
         self._watched_signature = signature(watched)
-        self._outputs = graph.capture(lambda: body(self._inputs))
+        self._replay_span = replay_span
+        self._outputs = graph.capture(lambda: body(self.inputs))
 
     def fits(self, inputs, watched) -> bool:
         return (signature(inputs) == self._signature
                 and signature(watched) == self._watched_signature
-                and self._watched_fit(watched))
+                and self._rebound_fit(watched))
 
-    def _watched_fit(self, watched) -> bool:
-        return all(t.data_ptr() == self._watched[path].data_ptr()
-                   for path, t in watched.items())
+    def _rebound_fit(self, watched) -> bool:
+        """Whether each watched tensor rebound since the capture (the
+        normalizer's ``obs_norm``, a net loaded by assignment) can have its
+        values copied into the captured one."""
+        live = {t.data_ptr() for t in watched.values()}
+        writes = {}
+        for path, tensor in watched.items():
+            captured = self._watched[path]
+            if tensor.data_ptr() == captured.data_ptr():
+                continue
+            # A value read on the host is part of the graph; a captured
+            # tensor still in use, or captured at two paths that now hold
+            # two tensors, cannot take the new values.
+            if (captured.device != self._graph.device
+                    or captured.data_ptr() in live
+                    or writes.setdefault(captured.data_ptr(),
+                                         tensor.data_ptr())
+                    != tensor.data_ptr()):
+                return False
+        return True
 
-    def _copy_in(self, inputs):
+    def __call__(self, inputs, watched):
+        for path, tensor in watched.items():
+            captured = self._watched[path]
+            if tensor.data_ptr() != captured.data_ptr():
+                captured.copy_(tensor)
         for static, given in zip(self._input_leaves,
                                  pytree.tree_leaves(inputs)):
             if given is not static:
                 static.copy_(given)
+        with span(self._replay_span):
+            self._graph.replay()
+        return self._outputs
 
 
 class GraphedCalls:
@@ -102,20 +121,22 @@ class GraphedCalls:
 
     ``_init_graphs`` takes the device (a graph only on a CUDA one), the
     prefix of the spans and what the body is, for the warning.
-    ``_through_graph(eager, capture, inputs, watched)`` runs ``eager()`` on
-    the first call at the body's shapes, captures the body on the second
-    (``capture(graph_class)`` returns a ``Captured``, under
-    ``<prefix>.capture``) and replays it from then on (``graph(inputs,
-    watched)``); a held graph that does not fit ``inputs`` and ``watched``
-    is dropped, and the next call runs eagerly again. A capture that CUDA
-    refuses (a body that waits for the host, for one) leaves the body
-    eager for good, with one warning; running out of memory is no refusal
-    and raises. ``captures``, ``graph_replays`` and ``capture_failures``
-    count the events.
+    ``_through_graph(body, inputs, watched, generators, hand_out)`` returns
+    ``body(inputs)`` on the first call at the body's shapes; on the second
+    it captures the body (a ``Captured`` over
+    ``graph_class(generators, device)``, under ``<prefix>.capture``), and
+    from then on it replays and returns ``hand_out(outputs,
+    static_inputs)``. A held graph that does not fit ``inputs`` and
+    ``watched`` is dropped, and the next call runs eagerly again. A
+    capture that CUDA refuses (a body that waits for the host, for one)
+    leaves the body eager for good, with one warning; running out of
+    memory is no refusal and raises. ``captures``, ``graph_replays`` and
+    ``capture_failures`` count the events.
     """
 
     def _init_graphs(self, device: torch.device, prefix: str, what: str):
         self._graph_class = CudaGraph if device.type == "cuda" else None
+        self._graph_device = device
         self._graph: Optional[Captured] = None
         self._warm = False  # an eager call has run with no graph held
         self._graph_prefix = prefix
@@ -124,8 +145,10 @@ class GraphedCalls:
         self.graph_replays = 0
         self.capture_failures = 0
 
-    def _through_graph(self, eager: Callable, capture: Callable, inputs,
-                       watched):
+    def _through_graph(self, body: Callable, inputs,
+                       watched: Dict[tuple, torch.Tensor],
+                       generators: Sequence[torch.Generator],
+                       hand_out: Callable):
         graph = self._graph
         if graph is not None and not graph.fits(inputs, watched):
             graph = self._graph = None
@@ -133,17 +156,21 @@ class GraphedCalls:
         if graph is None:
             if not self._warm:
                 self._warm = True
-                return eager()
-            graph = self._capture(capture)
+                return body(inputs)
+            graph = self._capture(body, inputs, watched, generators)
             if graph is None:
-                return eager()
+                return body(inputs)
         self.graph_replays += 1
-        return graph(inputs, watched)
+        return hand_out(graph(inputs, watched), graph.inputs)
 
-    def _capture(self, capture: Callable) -> Optional[Captured]:
+    def _capture(self, body, inputs, watched,
+                 generators) -> Optional[Captured]:
         with span(f"{self._graph_prefix}.capture"):
             try:
-                graph = capture(self._graph_class)
+                graph = Captured(
+                    self._graph_class(generators, self._graph_device),
+                    body, inputs, watched,
+                    f"{self._graph_prefix}.graph_replay")
             except RuntimeError as e:
                 if out_of_memory(e):
                     raise
@@ -157,6 +184,7 @@ class GraphedCalls:
         self.captures += 1
         self._graph = graph
         return graph
+
 
 
 def out_of_memory(error: BaseException) -> bool:

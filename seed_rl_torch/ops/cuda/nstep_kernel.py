@@ -25,25 +25,14 @@ a shape gets.
 """
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from seed_rl_torch.ops import value_ops
-from seed_rl_torch.ops.cuda import build
+from seed_rl_torch.ops.cuda import build, run_count
 
 KERNEL_NAME = "nstep_kernel"
-
-# Kernel launches the host made in this process: a CUDA graph's capture
-# records one, and its replays are not counted here.
-launches = 0
-
-# The kernel's runs on each device, counted by the device: after each
-# launch the wrapper adds 1 to its device's counter on the launch's stream,
-# so a CUDA graph that captured a launch counts each of its replays
-# (chip_smoke.py reads ``runs()`` to show that a training path went through
-# the kernel).
-_run_counts: Dict[torch.device, torch.Tensor] = {}
 
 _library_handle = None
 
@@ -95,33 +84,6 @@ def launch_shape(T: int, B: int, n_steps: int) -> LaunchShape:
     if err != 0:
         raise ValueError(f"no n-step launch for T={T}, B={B}, n={n_steps}")
     return LaunchShape(*(x.value for x in out))
-
-
-def runs() -> int:
-    """The kernel's runs on every device since the last ``reset_runs()``
-    (a host sync)."""
-    return sum(int(count.item()) for count in _run_counts.values())
-
-
-def reset_runs():
-    """Every device's count of runs to 0, in place (a captured graph's
-    counter stays the one it adds to)."""
-    for count in _run_counts.values():
-        count.zero_()
-
-
-def _count_run(device: torch.device):
-    count = _run_counts.get(device)
-    if count is None:
-        if torch.cuda.is_current_stream_capturing():
-            # Made under a capture, the counter would be zeroed by each
-            # replay.
-            raise RuntimeError(
-                "the n-step kernel's first launch on a device cannot be "
-                "captured: launch it eagerly first")
-        count = _run_counts[device] = torch.zeros(
-            (), dtype=torch.int64, device=device)
-    count.add_(1)
 
 
 def _check(q_values, target_q_values, online_argmax_action, replay_action,
@@ -180,7 +142,6 @@ def td_loss_and_priorities(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequence double-DQN loss and priorities; the contract of
     ``seed_rl_torch.ops.value_ops.td_loss_and_priorities``."""
-    global launches
     on_cpu = _check(q_values, target_q_values, online_argmax_action,
                     replay_action, rewards, done, n_steps)
     if on_cpu:
@@ -218,8 +179,7 @@ def td_loss_and_priorities(
         if err != 0:
             raise RuntimeError(
                 f"n-step kernel launch failed: CUDA error {err}")
-        _count_run(q_values.device)
-    launches += 1
+        run_count.add(KERNEL_NAME, q_values.device)
     loss = 0.5 * torch.sum(torch.square(targets - replay_q[:-1]), dim=0)
     return loss, priorities
 

@@ -23,13 +23,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from seed_rl_torch.ops import vtrace as vtrace_plain
-from seed_rl_torch.ops.cuda import build
+from seed_rl_torch.ops.cuda import build, run_count
 
 KERNEL_NAME = "vtrace_kernel"
-
-# Kernel launches made by this process (chip_smoke.py reads it to show that
-# the training path went through the kernel).
-launches = 0
 
 _library_handle = None
 
@@ -104,7 +100,6 @@ def from_importance_weights(
     lambda_: float = 1.0,
 ) -> vtrace_plain.VTraceReturns:
     """V-trace; same contract as ``seed_rl_torch.ops.vtrace``."""
-    global launches
     inputs = [
         target_action_log_probs, behaviour_action_log_probs, discounts,
         rewards, values, bootstrap_value,
@@ -159,7 +154,8 @@ def from_importance_weights(
             float(lambda_), plan.chunk, plan.buffers,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"V-trace kernel launch failed: CUDA error {err}")
-    launches += 1
+        if err != 0:
+            raise RuntimeError(
+                f"V-trace kernel launch failed: CUDA error {err}")
+        run_count.add(KERNEL_NAME, device)
     return vtrace_plain.VTraceReturns(vs=vs, pg_advantages=pg_advantages)

@@ -32,7 +32,7 @@ from typing import Any, List, NamedTuple, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from seed_rl_torch.cuda_graph import Captured, GraphedCalls, tensors_of
+from seed_rl_torch.cuda_graph import GraphedCalls, tensors_of
 from seed_rl_torch.envs.core import BatchedEnv, BatchedEnvState
 from seed_rl_torch.types import EnvOutput
 from seed_rl_torch.utils.profiling import span
@@ -229,88 +229,34 @@ class RolloutEngine(GraphedCalls):
                                  timesteps=timesteps)
 
     def _graphed(self, state: RolloutState) -> Tuple[RolloutState, Timestep]:
-        """``_body`` by the graph (``GraphedCalls``). A body that waits for
-        the host, for one, cannot be captured."""
-        watched = tensors_of((self.agent, self.env))
+        """``_body`` by the graph (``GraphedCalls``), with the agent's and
+        env's tensors read in place. ``next_unroll_state``, which the body
+        does not read, is no input."""
         return self._through_graph(
-            lambda: self._body(state),
-            lambda graph_class: _GraphedRollout(
-                graph_class([self.generator, self.env.generator]),
-                self._body, state, watched, self.overlap + 1, self.device),
-            state, watched)
+            self._body, state._replace(next_unroll_state=()),
+            tensors_of((self.agent, self.env)),
+            [self.generator, self.env.generator], self._hand_out)
 
-
-class _GraphedRollout(Captured):
-    """The rollout's body captured once, over static inputs.
-
-    A call copies the caller's state into the static inputs, replays and
-    returns the outputs cloned, so every unroll and state it hands out is
-    the caller's own, as the eager loop's are. A leaf of the agent state
-    that the body writes in place (GTrXL's memory) comes out as the static
-    input at the same position of the agent state: it is handed out as it
-    is, and when the next call passes it back, nothing is copied.
-    ``next_unroll_state``, which the body does not read, is no input. The
-    agent's and env's tensors are read in place (parameters stepped in
-    place are seen); one rebound to another tensor since the capture
-    (``obs_norm``) has its values copied into the captured tensor before
-    each replay.
-    """
-
-    def __init__(self, graph, body, state, watched, carried: int, device):
-        self._carried = carried
-        self._device = device
-        super().__init__(graph, body, _body_inputs(state), watched)
-
-    def fits(self, state, watched) -> bool:
-        """Whether a replay computes ``_body(state)`` with the agent and
-        env as they are now; else a capture has to."""
-        return super().fits(_body_inputs(state), watched)
-
-    def _watched_fit(self, watched) -> bool:
-        live = {t.data_ptr() for t in watched.values()}
-        writes = {}
-        for path, tensor in watched.items():
-            captured = self._watched[path]
-            if tensor.data_ptr() == captured.data_ptr():
-                continue
-            # A value read on the host is part of the graph; a captured
-            # tensor still in use, or captured at two paths that now hold
-            # two tensors, cannot take the new values.
-            if (captured.device != self._device
-                    or captured.data_ptr() in live
-                    or writes.setdefault(captured.data_ptr(),
-                                         tensor.data_ptr())
-                    != tensor.data_ptr()):
-                return False
-        return True
-
-    def __call__(self, state, watched) -> Tuple[RolloutState, Timestep]:
-        for path, tensor in watched.items():
-            captured = self._watched[path]
-            if tensor.data_ptr() != captured.data_ptr():
-                captured.copy_(tensor)
-        self._copy_in(_body_inputs(state))
-        with span("rollout.graph_replay"):
-            self._graph.replay()
-        new_state, timesteps = self._outputs
+    def _hand_out(self, outputs, inputs) -> Tuple[RolloutState, Timestep]:
+        """A replay's outputs cloned, so that every unroll and state handed
+        out is the caller's own, as the eager loop's are. A leaf of the
+        agent state that the body writes in place (GTrXL's memory) comes
+        out as the static input at the same position: it is handed out as
+        it is, and when the next call passes it back, nothing is copied."""
+        new_state, timesteps = outputs
         timesteps = pytree.tree_map(torch.clone, timesteps)
         agent_leaves, agent_spec = pytree.tree_flatten(new_state.agent_state)
         agent_state = pytree.tree_unflatten(
             [out if out is static else out.clone()
-             for out, static in zip(
-                 agent_leaves,
-                 pytree.tree_leaves(self._inputs.agent_state))],
+             for out, static in zip(agent_leaves,
+                                    pytree.tree_leaves(inputs.agent_state))],
             agent_spec)
         new_state = pytree.tree_map(
             torch.clone,
             new_state._replace(agent_state=(), carry_timesteps=()))
         return new_state._replace(
             agent_state=agent_state,
-            carry_timesteps=_tail_time(timesteps, self._carried)), timesteps
-
-
-def _body_inputs(state: RolloutState) -> RolloutState:
-    return state._replace(next_unroll_state=())
+            carry_timesteps=_tail_time(timesteps, self.overlap + 1)), timesteps
 
 
 def zero_action_for_space(space, device=None):

@@ -16,7 +16,7 @@ import torch.utils._pytree as pytree
 
 from seed_rl_torch.ops import value_ops
 from seed_rl_torch.ops import vtrace as plain
-from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+from seed_rl_torch.ops.cuda import nstep_kernel, run_count, vtrace_kernel
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -63,11 +63,11 @@ def test_vtrace_kernel_matches_plain(cuda, T, B, lam, clip_rho, clip_pg):
     args = _inputs(T, B, T + B, cuda)
     kwargs = dict(clip_rho_threshold=clip_rho,
                   clip_pg_rho_threshold=clip_pg, lambda_=lam)
-    before = vtrace_kernel.launches
+    before = run_count.read(vtrace_kernel.KERNEL_NAME)
     got = vtrace_kernel.from_importance_weights(*args, **kwargs)
     want = plain.from_importance_weights(*args, **kwargs)
     torch.cuda.synchronize()
-    assert vtrace_kernel.launches == before + 1
+    assert run_count.read(vtrace_kernel.KERNEL_NAME) == before + 1
     assert vtrace_kernel.launch_shape(T, B).smem_bytes <= BLOCK_SMEM_BYTES
     torch.testing.assert_close(got.vs, want.vs, **TOL)
     torch.testing.assert_close(got.pg_advantages, want.pg_advantages, **TOL)
@@ -90,13 +90,13 @@ def test_vtrace_kernel_refuses_what_it_does_not_take(cuda):
 def test_vtrace_train_step_runs_on_the_card(cuda):
     from seed_rl_torch import train
 
-    vtrace_kernel.launches = 0
+    run_count.reset()
     learner, state, metrics = train.main([
         "--agent=vtrace", "--env=toy", "--num_envs=256",
         "--unroll_length=8", "--total_environment_frames=4096",
         "--steps_per_call=1", "--log_every_steps=1",
     ])
-    assert state.step == 2 and vtrace_kernel.launches == 2
+    assert state.step == 2 and run_count.read(vtrace_kernel.KERNEL_NAME) == 2
     assert all(math.isfinite(float(v)) for v in metrics.values())
     for t in learner.parameters() + learner.state_tensors(state):
         assert t.device.type == "cuda"
@@ -148,13 +148,12 @@ def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta,
     q_kernel = q.clone().requires_grad_(True)
     q_plain = q.clone().requires_grad_(True)
     kw = dict(gamma=gamma, n_steps=n, eta=eta)
-    before, runs = nstep_kernel.launches, nstep_kernel.runs()
+    before = run_count.read(nstep_kernel.KERNEL_NAME)
     loss, pri = nstep_kernel.td_loss_and_priorities(q_kernel, **kwargs, **kw)
     want_loss, want_pri = value_ops.td_loss_and_priorities(
         q_plain, **kwargs, **kw)
     torch.cuda.synchronize()
-    assert nstep_kernel.launches == before + 1
-    assert nstep_kernel.runs() == runs + 1
+    assert run_count.read(nstep_kernel.KERNEL_NAME) == before + 1
     assert nstep_kernel.launch_shape(T, B, n).smem_bytes <= BLOCK_SMEM_BYTES
     torch.testing.assert_close(loss, want_loss, **TOL)
     torch.testing.assert_close(pri, want_pri, **TOL)
@@ -163,26 +162,39 @@ def test_nstep_kernel_matches_plain(cuda, T, B, A, n, gamma, eta,
     torch.testing.assert_close(g_kernel, g_plain, rtol=1e-3, atol=1e-4)
 
 
-def test_nstep_kernel_counts_each_replay_of_a_captured_launch(cuda):
+def _vtrace_call(device):
+    args = _inputs(33, 64, 5, device)
+    return vtrace_kernel.KERNEL_NAME, lambda: tuple(
+        vtrace_kernel.from_importance_weights(*args))
+
+
+def _nstep_call(device):
+    kwargs = _nstep_inputs(11, 64, 4, 5, device, torch.bool)
+    return nstep_kernel.KERNEL_NAME, lambda: (
+        nstep_kernel.td_loss_and_priorities(**kwargs, gamma=0.997,
+                                            n_steps=5))
+
+
+@pytest.mark.parametrize("call", [_vtrace_call, _nstep_call],
+                         ids=["vtrace", "nstep"])
+def test_nstep_kernel_counts_each_replay_of_a_captured_launch(cuda, call):
     # The host makes one launch, at the capture; the card counts the eager
-    # call and each replay.
-    kwargs = _nstep_inputs(11, 64, 4, 5, cuda, torch.bool)
-    kw = dict(gamma=0.997, n_steps=5)
-    want_loss, want_pri = nstep_kernel.td_loss_and_priorities(**kwargs, **kw)
-    before, runs = nstep_kernel.launches, nstep_kernel.runs()
+    # call and each replay, for B1 and B2 alike.
+    kernel, fn = call(cuda)
+    want = fn()
+    runs = run_count.read(kernel)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        loss, pri = nstep_kernel.td_loss_and_priorities(**kwargs, **kw)
+        got = fn()
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
-    assert nstep_kernel.launches == before + 1
-    assert nstep_kernel.runs() == runs + 3
-    torch.testing.assert_close(loss, want_loss, rtol=0, atol=0)
-    torch.testing.assert_close(pri, want_pri, rtol=0, atol=0)
-    nstep_kernel.reset_runs()
+    assert run_count.read(kernel) == runs + 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    run_count.reset()
     graph.replay()
-    assert nstep_kernel.runs() == 1
+    assert run_count.read(kernel) == 1
 
 
 @pytest.mark.parametrize("launch_shape,want", [
@@ -222,7 +234,7 @@ def test_nstep_kernel_refuses_what_it_does_not_take(cuda):
 def test_r2d2_train_step_runs_on_the_card(cuda):
     from seed_rl_torch import train
 
-    nstep_kernel.reset_runs()
+    run_count.reset()
     learner, state, metrics = train.main([
         "--agent=r2d2", "--env=discrete_match", "--num_envs=64",
         "--num_eval_envs=4", "--unroll_length=10", "--burn_in=4",
@@ -233,7 +245,7 @@ def test_r2d2_train_step_runs_on_the_card(cuda):
     ])
     # 2 warmup rollouts, then 2 steps of 1 insert + 2 batches (counted on
     # the card: the update's graph replays B2).
-    assert state.step == 2 and nstep_kernel.runs() == 2 + 2 * 3
+    assert state.step == 2 and run_count.read(nstep_kernel.KERNEL_NAME) == 2 + 2 * 3
     assert all(math.isfinite(float(v)) for v in metrics.values())
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
@@ -333,13 +345,13 @@ def test_pixel_nets_on_the_card_match_the_cpu(cuda, kind):
 def test_pixel_vtrace_launches_the_kernel_once_per_step(cuda, argv):
     from seed_rl_torch import train
 
-    vtrace_kernel.launches = 0
+    run_count.reset()
     learner, state, metrics = train.main([
         "--agent=vtrace", *argv, "--num_envs=64", "--unroll_length=8",
         "--total_environment_frames=1024", "--steps_per_call=1",
         "--log_every_steps=1",
     ])
-    assert state.step == 2 and vtrace_kernel.launches == 2
+    assert state.step == 2 and run_count.read(vtrace_kernel.KERNEL_NAME) == 2
     assert all(math.isfinite(float(v)) for v in metrics.values())
     for t in learner.parameters() + learner.state_tensors(state):
         assert t.device.type == "cuda"
@@ -391,7 +403,7 @@ def test_r2d2_from_pixels_launches_the_kernel_per_insert_and_batch(cuda,
     from seed_rl_torch import train
     from seed_rl_torch.models import DuelingLSTMDQNNet
 
-    nstep_kernel.reset_runs()
+    run_count.reset()
     learner, state, metrics = train.main([
         "--agent=r2d2", f"--env={env}", "--num_envs=16", "--num_eval_envs=2",
         "--unroll_length=10", "--burn_in=4", "--batch_size=8",
@@ -402,7 +414,7 @@ def test_r2d2_from_pixels_launches_the_kernel_per_insert_and_batch(cuda,
     # 2 warmup inserts of 14 training envs, then 2 steps of 1 insert + 2
     # batches, counted on the card.
     assert isinstance(learner.net, DuelingLSTMDQNNet)
-    assert state.step == 2 and nstep_kernel.runs() == 2 + 2 * 3
+    assert state.step == 2 and run_count.read(nstep_kernel.KERNEL_NAME) == 2 + 2 * 3
     assert all(math.isfinite(float(v)) for v in metrics.values())
     tensors = (learner.parameters() + list(learner.target_net.parameters())
                + learner.state_tensors(state))
@@ -528,7 +540,7 @@ def test_sac_train_step_runs_on_the_card(cuda, argv, net):
     move a step, and no hand kernel launched (SAC's path has none)."""
     from seed_rl_torch import train
 
-    vtrace_kernel.launches = nstep_kernel.launches = 0
+    run_count.reset()
     learner, state, metrics = train.main([
         "--agent=sac", "--num_envs=16", "--unroll_length=2",
         "--batch_size=32", "--replay_buffer_size=256",
@@ -538,7 +550,8 @@ def test_sac_train_step_runs_on_the_card(cuda, argv, net):
     assert type(learner.net).__name__ == net
     assert state.step == 1 and state.batches == 1
     assert learner.optimizer.count == 1
-    assert vtrace_kernel.launches == nstep_kernel.launches == 0
+    assert run_count.read(vtrace_kernel.KERNEL_NAME) == 0
+    assert run_count.read(nstep_kernel.KERNEL_NAME) == 0
     assert all(math.isfinite(float(v)) for v in metrics.values())
     for t in learner.parameters() + learner.state_tensors(state):
         assert t.device.type == "cuda"

@@ -29,6 +29,7 @@ import pytest
 import torch
 import torch.utils._pytree as pytree
 
+import graph_fakes as fakes
 import gtrxl_reference as ref
 from seed_rl_torch import distributions as pd
 from seed_rl_torch import train
@@ -43,7 +44,6 @@ from seed_rl_torch.models import ImpalaDeep, ImpalaGTrXL
 from seed_rl_torch.rollout import RolloutEngine
 from seed_rl_torch.types import EnvOutput
 from seed_rl_torch.utils import profiling
-from test_torch_rollout_graph import DirectCall
 
 CPU = torch.device("cpu")
 SIZES = dict(num_layers=2, model_size=16, num_heads=2, head_size=8,
@@ -339,12 +339,12 @@ def test_envs_that_restart_apart(staggered, check):
     STAGGERED_CHECKS[check](net, engine, unrolls)
 
 
-class _Capture(DirectCall):
+class _Capture(fakes.DirectCall):
     """``DirectCall``, whose capture also puts the net's counters back: a
     graph's capture counts nothing."""
 
-    def __init__(self, generators, counters):
-        super().__init__(generators)
+    def __init__(self, generators, device, counters):
+        super().__init__(generators, device)
         self.counters = counters
 
     def capture(self, fn):
@@ -358,7 +358,7 @@ class _Capture(DirectCall):
 def test_the_graph_path_keeps_the_state_in_its_inputs():
     eager_net, graphed_net = _net(), _net()
     eager, graphed = _engine(eager_net), _engine(graphed_net)
-    graphed._graph_class = lambda gens: _Capture(gens, graphed_net.counters)
+    fakes.graphed(graphed, _Capture, counters=graphed_net.counters)
     want, want_state = _trajectory(eager, 4)
     got, got_state = _trajectory(graphed, 4)
     assert graphed.captures == 1 and graphed.graph_replays == 3
@@ -369,7 +369,7 @@ def test_the_graph_path_keeps_the_state_in_its_inputs():
         assert torch.equal(counter, eager_net.counters[name]), name
     # The ring is the graph's static input, handed out and passed back
     # uncopied; each unroll keeps a memory of its own.
-    static = graphed._graph._inputs.agent_state.memory
+    static = graphed._graph.inputs.agent_state.memory
     assert all(a is b for a, b in zip(got_state.agent_state.memory, static))
     pointers = {u.agent_state.memory[0].data_ptr() for u in got}
     assert len(pointers) == 4 and static[0].data_ptr() not in pointers
@@ -498,7 +498,7 @@ def test_graphed_rollouts_are_the_eager_loop_s_on_the_card(cuda,
             assert torch.equal(x, y)
     for name, counter in graphed_net.counters.items():
         assert torch.equal(counter, eager_net.counters[name]), name
-    static = graphed._graph._inputs.agent_state.memory
+    static = graphed._graph.inputs.agent_state.memory
     assert all(a is b for a, b in zip(got_state.agent_state.memory, static))
 
 

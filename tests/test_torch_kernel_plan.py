@@ -7,13 +7,15 @@ plan past the maxima it is built for; ``tests/test_torch_cuda.py`` checks
 the launch it makes on the card. These tests check what the wrappers
 decide, for every T up to 4096: that the chunks cover each row exactly
 once, that each chunk stages the rows its results need, and that no plan
-passes the kernels' maxima.
+passes the kernels' maxima. Also the run counter both wrappers share
+(``run_count``), on CPU counters.
 """
 
 import numpy as np
 import pytest
+import torch
 
-from seed_rl_torch.ops.cuda import nstep_kernel, vtrace_kernel
+from seed_rl_torch.ops.cuda import nstep_kernel, run_count, vtrace_kernel
 
 MAX_T = 4096
 
@@ -82,3 +84,19 @@ def test_plans_at_the_path_shapes(plan, want):
 def test_plans_refuse_empty_shapes(plan):
     with pytest.raises(ValueError):
         plan()
+
+
+def test_runs_are_counted_per_kernel_and_reset_in_place():
+    cpu = torch.device("cpu")
+    for _ in range(3):
+        run_count.add("counted_a", cpu)
+    run_count.add("counted_b", cpu)
+    assert run_count.read("counted_a") == 3
+    assert run_count.read("counted_b") == 1
+    counter = run_count._counts["counted_a", cpu]
+    run_count.reset()
+    assert run_count.read("counted_a") == run_count.read("counted_b") == 0
+    # Zeroed in place: a graph that captured an add keeps adding to it.
+    assert run_count._counts["counted_a", cpu] is counter
+    run_count.add("counted_a", cpu)
+    assert run_count.read("counted_a") == 1

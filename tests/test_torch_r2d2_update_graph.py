@@ -2,13 +2,14 @@
 ``seed_rl_torch/agents/r2d2.py``).
 
 On the CPU the graph path's own logic runs with a stand-in for the graph
-(``DirectCall``: its capture runs the body once; its replay runs the body
-again on the static inputs, with no span, and writes its results, the
-gradients among them, into the captured outputs), held equal to the eager
-update: the priorities, the loss, each batch's own gradients and the
-parameters after Adam; the target net's and loaded weights reaching the
-next replay; the captures, the refusals and the spans. An update on the
-CPU itself, or under an active mesh reduction, never captures.
+(``graph_fakes.DirectCall``, whose replay writes the gradients among its
+results into the captured outputs), held equal to the eager update: the
+priorities, the loss, each batch's own gradients and the parameters after
+Adam; the target net's and loaded weights reaching the next replay; the
+captures and the spans. An update under an active mesh reduction never
+captures. What the update shares with every graphed body (the CPU, a
+refused capture, running out of memory) is held in
+``tests/test_torch_cuda_graph.py``.
 
 The tests marked ``cuda`` hold the real graph against the eager update on
 the card, bit for bit, for ``R2D2Learner`` and ``R2D2HostLearner``; they
@@ -28,10 +29,11 @@ from seed_rl_torch.agents import r2d2
 from seed_rl_torch.envs import BatchedEnv
 from seed_rl_torch.envs.synthetic import SyntheticAtariEnv
 from seed_rl_torch.models import DuelingLSTMDQNNet
-from seed_rl_torch.ops.cuda import nstep_kernel
+from seed_rl_torch.ops.cuda import nstep_kernel, run_count
 from seed_rl_torch.parallel import collectives
 from seed_rl_torch.rollout import RolloutEngine
 from seed_rl_torch.utils import profiling
+from graph_fakes import DirectCall, graphed
 
 CPU = torch.device("cpu")
 BATCHES = 4
@@ -51,60 +53,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
-
-
-class DirectCall:
-    """Stands in for ``cuda_graph.CudaGraph`` on the CPU, over the
-    parameters ``params``."""
-
-    def __init__(self, params, device=None):
-        self.params = params
-        self.device = device
-
-    def capture(self, fn):
-        self.fn = fn
-        self.outputs = fn()
-        return self.outputs
-
-    def replay(self):
-        # A graph's replay runs no Python: it opens no span and sets no
-        # parameter's ``.grad``.
-        recording, profiling._recording = profiling._recording, False
-        grads = [p.grad for p in self.params]
-        try:
-            outputs = self.fn()
-        finally:
-            profiling._recording = recording
-            for p, grad in zip(self.params, grads):
-                p.grad = grad
-        for static, new in zip(pytree.tree_leaves(self.outputs),
-                               pytree.tree_leaves(outputs)):
-            static.copy_(new)
-
-
-class Refusing(DirectCall):
-    """A graph whose capture raises, as a body that syncs with the host
-    makes CUDA's."""
-
-    def capture(self, fn):
-        raise RuntimeError("operation not permitted when stream is "
-                           "capturing")
-
-
-class OutOfMemory(DirectCall):
-    """A graph whose capture runs out of the card's memory: the
-    allocator's error, or CUDA's own raised while the capture ends."""
-
-    def __init__(self, params, error, device=None):
-        super().__init__(params, device)
-        self.error = error
-
-    def capture(self, fn):
-        try:
-            raise self.error
-        finally:
-            raise RuntimeError("CUDA error: operation failed due to a "
-                               "previous error during capture")
 
 
 class OneRankMesh:
@@ -153,9 +101,7 @@ def _host_learner(device, like):
 
 
 def _graphed(learner, graph_class=DirectCall):
-    learner._graph_class = functools.partial(graph_class,
-                                             learner.parameters())
-    return learner
+    return graphed(learner, graph_class, params=learner.parameters())
 
 
 def _batches(source, n=BATCHES, batch=None):
@@ -284,6 +230,8 @@ def test_a_changed_batch_shape_captures_again():
 
 
 def test_a_rebound_target_tensor_captures_again():
+    """The seam's one rule for a tensor rebound since the capture: its
+    values are copied into the captured one, and the graph is kept."""
     source = _learner(CPU)
     batches = _batches(source, 5)
 
@@ -292,7 +240,7 @@ def test_a_rebound_target_tensor_captures_again():
             if k == 2:
                 target = learner.target_net
                 target.load_state_dict(
-                    {n: t.clone() for n, t in target.state_dict().items()},
+                    {n: t + 0.01 for n, t in target.state_dict().items()},
                     assign=True)
         return between
 
@@ -301,62 +249,25 @@ def test_a_rebound_target_tensor_captures_again():
     got = _run(graphed, batches, between=rebind(graphed))
     for g, w in zip(got, want):
         _assert_trees_equal(g, w)
-    # Captured on batch 2; on batch 3 the graph no longer fits: eager,
-    # then captured again on batch 4 and replayed on batch 5.
-    assert graphed.captures == 2
-    assert graphed.graph_replays == 3
+    # Captured on batch 2; on batch 3 the new target's values are copied
+    # into the captured tensors, and batches 3 to 5 replay.
+    assert graphed.captures == 1
+    assert graphed.graph_replays == 4
 
 
-def test_the_cpu_and_an_active_mesh_reduction_never_capture():
+def test_an_active_mesh_reduction_never_captures():
     source = _learner(CPU)
     batches = _batches(source)
     on_cpu = _learner(CPU)
-    assert on_cpu._graph_class is None
     meshed = _graphed(_learner(CPU))
     with collectives.over(OneRankMesh()):
         want = _run(on_cpu, batches)
         got = _run(meshed, batches)
     for g, w in zip(got, want):
         _assert_trees_equal(g, w)
-    for learner in (on_cpu, meshed):
-        assert learner.captures == 0
-        assert learner.graph_replays == 0
-        assert learner._graph is None
-
-
-def test_a_refused_capture_leaves_the_update_eager():
-    source = _learner(CPU)
-    batches = _batches(source)
-    learner = _graphed(_learner(CPU), Refusing)
-    with pytest.warns(RuntimeWarning, match="runs eagerly") as warned:
-        got = _run(learner, batches)
-    assert len(warned) == 1
-    want = _run(_learner(CPU), batches)
-    for g, w in zip(got, want):
-        _assert_trees_equal(g, w)
-    assert learner.capture_failures == 1
-    assert learner.captures == 0
-    assert learner.graph_replays == 0
-    assert learner._graph_class is None
-
-
-@pytest.mark.parametrize("error", [
-    torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 56 MiB"),
-    RuntimeError("CUDA error: out of memory"),
-], ids=["allocator", "cuda"])
-def test_running_out_of_memory_in_a_capture_raises(error):
-    source = _learner(CPU)
-    batches = _batches(source, 2)
-    learner = _graphed(_learner(CPU),
-                       lambda params, device: OutOfMemory(params, error,
-                                                          device))
-    learner.optimize(*batches[0])
-    with pytest.raises(RuntimeError, match="previous error") as raised:
-        learner.optimize(*batches[1])
-    assert raised.value.__context__ is error
-    assert learner.capture_failures == 0
-    assert learner.captures == 0
-    assert learner._graph_class is not None
+    assert meshed.captures == 0
+    assert meshed.graph_replays == 0
+    assert meshed._graph is None
 
 
 def test_the_graph_path_s_spans(monkeypatch):
@@ -436,11 +347,11 @@ def test_graphed_batches_are_the_eager_ones_on_the_card(cuda, kind, shape):
         return between
 
     want = _run(eager, batches, between=sync(eager))
-    nstep_kernel.reset_runs()
+    run_count.reset()
     got = _run(graphed, batches, between=sync(graphed))
     # B2 ran once a batch, counted on the card: eagerly, then in each
     # replay.
-    assert nstep_kernel.runs() == BATCHES
+    assert run_count.read(nstep_kernel.KERNEL_NAME) == BATCHES
     assert graphed.captures == 1
     assert graphed.graph_replays == BATCHES - 1
     assert graphed.capture_failures == 0

@@ -1,12 +1,11 @@
 """The rollout as one CUDA graph (``seed_rl_torch/rollout.py``).
 
 On the CPU the graph path's own logic runs with a stand-in for the graph
-(``DirectCall``: its capture runs the body once and puts the generators
-back, as a capture draws nothing; its replay calls the body again on the
-static inputs and writes the results into the captured outputs), held
-equal to the eager loop: the static inputs, the clones handed out, the
-agent's rebound tensors, the counters and the spans. An engine on the CPU
-itself never captures.
+(``graph_fakes.DirectCall``), held equal to the eager loop: the static
+inputs, the clones handed out, the agent's rebound tensors, the counters
+and the spans. What the rollout shares with every graphed body (the CPU,
+a refused capture, running out of memory) is held in
+``tests/test_torch_cuda_graph.py``.
 
 The tests marked ``cuda`` hold the real graph against the eager loop on
 the card; they skip where torch sees no CUDA device. This file imports no
@@ -29,6 +28,7 @@ from seed_rl_torch.models import DuelingLSTMDQNNet, ImpalaDeep, MLPAndLSTM
 from seed_rl_torch.ops import normalizer
 from seed_rl_torch.rollout import RolloutEngine
 from seed_rl_torch.utils import profiling
+from graph_fakes import graphed as _graphed
 
 CPU = torch.device("cpu")
 ROLLOUTS = 4
@@ -48,57 +48,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
-
-
-class DirectCall:
-    """Stands in for ``rollout.CudaGraph`` on the CPU."""
-
-    def __init__(self, generators):
-        self.generators = generators
-
-    def capture(self, fn):
-        states = [g.get_state() for g in self.generators]
-        self.fn = fn
-        self.outputs = fn()
-        for generator, state in zip(self.generators, states):
-            generator.set_state(state)
-        return self.outputs
-
-    def replay(self):
-        # A graph's replay runs no Python, so it opens no span.
-        recording, profiling._recording = profiling._recording, False
-        try:
-            outputs = self.fn()
-        finally:
-            profiling._recording = recording
-        for static, new in zip(pytree.tree_leaves(self.outputs),
-                               pytree.tree_leaves(outputs)):
-            static.copy_(new)
-
-
-class Refusing(DirectCall):
-    """A graph whose capture raises, as a body that syncs with the host
-    makes CUDA's."""
-
-    def capture(self, fn):
-        raise RuntimeError("operation not permitted when stream is "
-                           "capturing")
-
-
-class OutOfMemory(DirectCall):
-    """A graph whose capture runs out of the card's memory: the
-    allocator's error, or CUDA's own raised while the capture ends."""
-
-    def __init__(self, generators, error):
-        super().__init__(generators)
-        self.error = error
-
-    def capture(self, fn):
-        try:
-            raise self.error
-        finally:
-            raise RuntimeError("CUDA error: operation failed due to a "
-                               "previous error during capture")
 
 
 # Small widths of the benchmark's two agents: V-trace over ImpalaDeep with no
@@ -136,11 +85,6 @@ def _normalizing(device, seed=5):
 
 
 ENGINES = {"vtrace": _vtrace, "r2d2": _r2d2}
-
-
-def _graphed(engine, graph_class=DirectCall):
-    engine._graph_class = graph_class
-    return engine
 
 
 def _rollouts(engine, n=ROLLOUTS, between=None):
@@ -230,16 +174,6 @@ def test_kept_unrolls_are_the_caller_s_own(agent):
                     != frames[j].untyped_storage().data_ptr())
             assert not torch.equal(frames[i], frames[j])
             assert not torch.equal(logits[i], logits[j])
-
-
-@pytest.mark.parametrize("agent", sorted(ENGINES))
-def test_an_engine_on_the_cpu_never_captures(agent):
-    engine = ENGINES[agent](CPU)
-    assert engine._graph_class is None
-    _rollouts(engine, 3)
-    assert engine.captures == 0
-    assert engine.graph_replays == 0
-    assert engine._graph is None
 
 
 def _span_names(monkeypatch, engine, n):
@@ -360,35 +294,6 @@ def test_a_rebound_tensor_still_in_use_is_captured_again():
         _assert_trees_equal(g, w)
     assert graphed.captures == 2
     assert graphed.graph_replays == 3
-
-
-def test_a_capture_that_raises_leaves_the_engine_eager():
-    engine = _graphed(_r2d2(CPU), Refusing)
-    with pytest.warns(RuntimeWarning, match="runs eagerly"):
-        got, _ = _rollouts(engine)
-    want, _ = _rollouts(_r2d2(CPU))
-    for g, w in zip(got, want):
-        _assert_trees_equal(g, w)
-    assert engine.capture_failures == 1
-    assert engine.captures == 0
-    assert engine.graph_replays == 0
-    assert engine._graph_class is None
-
-
-@pytest.mark.parametrize("error", [
-    torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 56 MiB"),
-    RuntimeError("CUDA error: out of memory"),
-], ids=["allocator", "cuda"])
-def test_running_out_of_memory_in_a_capture_raises(error):
-    engine = _graphed(_r2d2(CPU),
-                      lambda generators: OutOfMemory(generators, error))
-    state, _ = engine.rollout(engine.init())
-    with pytest.raises(RuntimeError, match="previous error") as raised:
-        engine.rollout(state)
-    assert raised.value.__context__ is error
-    assert engine.capture_failures == 0
-    assert engine.captures == 0
-    assert engine._graph_class is not None
 
 
 # -- on the card --------------------------------------------------------------
